@@ -1,0 +1,106 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel is one CUDA C++ source under ``csrc/`` with a plain C
+interface. At first use it is compiled with ``nvcc`` for Hopper
+(``sm_90a``) into a shared library under ``build/torch_kernels/`` beside
+the package (a directory ``.gitignore`` covers), named by a hash of the
+source and the flags so an edited source is rebuilt, and loaded with
+``ctypes``. Nothing here runs at import time: importing the port needs no
+toolkit and no card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from typing import Optional, Sequence
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
+
+# --fmad=false: no multiply-add contraction, so float results follow the
+# source's rounding order (the NMS keep masks must match bit for bit).
+# No --use_fast_math: division and square root stay IEEE.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError(
+        "nvcc not found: the port's CUDA kernels are built at first use with "
+        "the CUDA toolkit's nvcc (put it on PATH or set CUDA_HOME)"
+    )
+
+
+class CudaKernel:
+    """One ``csrc/<name>.cu`` source, its C entry point and its launch count.
+
+    ``launches`` is incremented by the Python wrapper each time it launches
+    the kernel, and by nothing else, so a run can show that its main path
+    went through the kernel.
+    """
+
+    def __init__(self, name: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int):
+        self.name = name
+        self.source = os.path.join(CSRC_DIR, name + ".cu")
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.restype = restype
+        self.launches = 0
+        self.build_log = ""
+        self._lib: Optional[ctypes.CDLL] = None
+
+    def library_path(self) -> str:
+        with open(self.source, "rb") as f:
+            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        return os.path.join(BUILD_DIR, f"lib{self.name}-{digest[:16]}.so")
+
+    def build(self) -> ctypes.CDLL:
+        """Compile (unless this source and these flags were built before)
+        and load the library. Raises with nvcc's output when it fails."""
+        if self._lib is not None:
+            return self._lib
+        path = self.library_path()
+        if not os.path.exists(path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            try:
+                proc = subprocess.run(
+                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, self.source],
+                    capture_output=True, text=True,
+                )
+                self.build_log = proc.stdout + proc.stderr
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed to build {self.source}:\n{self.build_log}"
+                    )
+                os.replace(tmp, path)  # atomic: concurrent builds agree
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+        lib = ctypes.CDLL(path)
+        fn = getattr(lib, self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = self.restype
+        self._lib = lib
+        return lib
+
+    def __call__(self, *args) -> int:
+        """Call the C entry point; returns its status (cudaGetLastError)."""
+        return getattr(self.build(), self.symbol)(*args)

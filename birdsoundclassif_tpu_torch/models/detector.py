@@ -1,0 +1,88 @@
+"""NbmModel: backbone -> attention -> FPN -> RPN -> RCNN, eval forward.
+
+Port of ``birdsoundclassif_tpu/models/detector.py`` for the default module
+order (reference: nbm_model.py:22-80, head.py:9-42). The module tree carries
+the reference's state_dict keys, so a reference ``model_chkpt.pt`` loads
+directly. The conv stack (backbone, attention, FPN) runs in
+``cfg.compute_dtype``; box geometry, NMS and the heads' outputs stay
+float32, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from . import nn as tnn
+from ..device import full_f32
+from .attention import SAPyramid
+from .backbone import Backbone, backbone_channels
+from .fpn import FPN
+from .rcnn import RCNN, Detections, fast_rcnn_inference
+from .roi import roi_pool
+from .rpn import RPN, Proposals, proposal_layer
+
+class _FastRCNN(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        self.rcnn = RCNN(cfg)
+
+
+class _Head(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        self.rpn = RPN(cfg)
+        self.fast_rcnn = _FastRCNN(cfg)
+
+
+class NbmModel(nn.Module):
+    """The detector. Parameters are allocated uninitialised: call
+    ``init_weights(generator)`` or load a state_dict."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        unported = [name for name in ("fpn_first", "sandwich_attn", "tf_rcnn", "ablate_roi_pe",
+                                      "neutral_roi_pe", "quantize_fpn") if getattr(cfg, name)]
+        if unported or cfg.fpn != "fpn":
+            raise ValueError(f"config options not ported yet: {unported or ['fpn=' + cfg.fpn]}")
+        self.cfg = cfg
+        self.compute_dtype = getattr(torch, cfg.compute_dtype)
+        channels = backbone_channels(cfg.backbone)
+        self.backbone = nn.ModuleList([Backbone(cfg)])  # the reference's Joiner '0'
+        self.attn = SAPyramid(channels, cfg.pyramid_top_n_attn)
+        self.fpn = FPN(channels, cfg.fpn_p_chan, cfg.out_fpn_chan)
+        self.head = _Head(cfg)
+
+    def init_weights(self, generator: torch.Generator) -> "NbmModel":
+        """Random weights with the JAX package's distributions, drawn on the
+        CPU from `generator` (so a seed gives the same weights on any
+        device)."""
+        device = next(self.parameters()).device
+        self.to("cpu")
+        tnn.init_weights(self, generator)
+        return self.to(device)
+
+    def forward_first_stage(self, samples: torch.Tensor):
+        """samples (B, C_in, H, W) -> (Proposals, FPN pyramid)."""
+        x = samples.to(self.compute_dtype)
+        backbone = self.backbone[0]
+        feats = backbone(x)
+        if self.cfg.add_posenc:
+            feats = [f + p for f, p in zip(feats, backbone.position_embeddings(feats))]
+        fpn_out = self.fpn(self.attn(feats))
+        cls_scores, bbox_reg = self.head.rpn(fpn_out)
+        props: Proposals = proposal_layer(cls_scores, bbox_reg, self.cfg)
+        return props, fpn_out
+
+    def forward(self, samples: torch.Tensor, nms_thresh: float = 0.3,
+                min_score: float = 0.5) -> Detections:
+        """Windows (B, H, W) or (B, C_in, H, W) -> fixed-slot detections
+        (B, R, 4) / (B, R). Float32 parts run in full float32 (no TF32)."""
+        if samples.dim() == 3:
+            samples = samples[:, None]
+        with full_f32():
+            props, fpn_out = self.forward_first_stage(samples)
+            pooled, pe, _ = roi_pool(props.rois, fpn_out, self.cfg)
+            bbox_reg, bbox_classes = self.head.fast_rcnn.rcnn(pooled, pe)
+            return fast_rcnn_inference(bbox_reg, bbox_classes, props.rois, props.valid,
+                                       self.cfg, nms_thresh, min_score)

@@ -1,0 +1,190 @@
+"""Building blocks of the eval path: NCHW modules with the reference's
+state_dict keys.
+
+Port of ``birdsoundclassif_tpu/models/nn.py``. Mixed precision follows the
+JAX package: parameters are stored in float32 and cast to the activation
+dtype inside each layer, so one cast of the input flips a whole stack to
+bf16; batch norms compute in float32 and cast back.
+
+Parameters are allocated uninitialised; ``init_weights`` fills them from an
+explicit ``torch.Generator`` with the JAX package's distributions (kaiming
+normal convs and linears, N(0, 0.02) scales for the inverted-bottleneck
+batch norms; reference: nets_utils.py:149-156), or a checkpoint is loaded
+over them.
+
+The JAX package's depthwise "taps" custom VJP (nn.py:126-247) works around
+an XLA gradient lowering on the TPU; its forward is the grouped convolution
+used here.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.image import resize_bilinear_align_corners
+
+BN_EPS = 1e-5
+
+
+def _pair(v) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def _normal(t: torch.Tensor, std: float, gen: torch.Generator) -> None:
+    with torch.no_grad():
+        t.copy_(torch.randn(t.shape, generator=gen) * std)
+
+
+def _uniform(t: torch.Tensor, bound: float, gen: torch.Generator) -> None:
+    with torch.no_grad():
+        t.copy_((torch.rand(t.shape, generator=gen) * 2.0 - 1.0) * bound)
+
+
+class Conv2d(nn.Module):
+    """Conv with the reference layout (O, I/groups, kh, kw) and torch
+    padding arithmetic; weights cast to the input dtype.
+
+    init: "kaiming" (normal, fan_in, relu gain), "fan_out" (torchvision
+    ResNet: normal, fan_out, relu gain) or "torch_default" (uniform
+    +-1/sqrt(fan_in)); biases are uniform +-1/sqrt(fan_in) in every case.
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, kernel, stride=1, padding=0, groups: int = 1,
+                 dilation: int = 1, bias: bool = True, init: str = "kaiming"):
+        super().__init__()
+        kh, kw = _pair(kernel)
+        self.stride, self.padding = _pair(stride), _pair(padding)
+        self.groups, self.dilation, self.init = groups, dilation, init
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups, kh, kw), requires_grad=False)
+        if bias:
+            self.bias = nn.Parameter(torch.empty(out_ch), requires_grad=False)
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding,
+                        self.dilation, self.groups)
+
+    def init_weights(self, gen: torch.Generator) -> None:
+        out_ch, in_per_group, kh, kw = self.weight.shape
+        fan_in = kh * kw * in_per_group
+        if self.init == "kaiming":
+            _normal(self.weight, math.sqrt(2.0 / fan_in), gen)
+        elif self.init == "fan_out":
+            _normal(self.weight, math.sqrt(2.0 / (kh * kw * out_ch // self.groups)), gen)
+        else:
+            _uniform(self.weight, 1.0 / math.sqrt(fan_in), gen)
+        if self.bias is not None:
+            _uniform(self.bias, 1.0 / math.sqrt(fan_in), gen)
+
+
+class Linear(nn.Module):
+    """Linear with the reference layout (out, in); weights cast to the input
+    dtype. init: "kaiming" (normal, fan_in) or "torch_default"."""
+
+    def __init__(self, in_dim: int, out_dim: int, init: str = "kaiming"):
+        super().__init__()
+        self.init = init
+        self.weight = nn.Parameter(torch.empty(out_dim, in_dim), requires_grad=False)
+        self.bias = nn.Parameter(torch.empty(out_dim), requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+    def init_weights(self, gen: torch.Generator) -> None:
+        in_dim = self.weight.shape[1]
+        if self.init == "kaiming":
+            _normal(self.weight, math.sqrt(2.0 / in_dim), gen)
+        else:
+            _uniform(self.weight, 1.0 / math.sqrt(in_dim), gen)
+        _uniform(self.bias, 1.0 / math.sqrt(in_dim), gen)
+
+
+class _Norm(nn.Module):
+    def __init__(self, ch: int, reference_init: bool):
+        super().__init__()
+        self.reference_init = reference_init
+        for name in ("weight", "bias", "running_mean", "running_var"):
+            self.register_buffer(name, torch.empty(ch))
+
+    def init_weights(self, gen: torch.Generator) -> None:
+        if self.reference_init:
+            _normal(self.weight, 0.02, gen)
+        else:
+            self.weight.fill_(1.0)
+        self.bias.zero_()
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
+
+class FrozenBatchNorm2d(_Norm):
+    """Running stats and affine are constants (reference: backbone.py:26-62,
+    eps added before rsqrt); computed in float32."""
+
+    def __init__(self, ch: int):
+        super().__init__(ch, reference_init=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scale = self.weight * torch.rsqrt(self.running_var + BN_EPS)
+        bias = self.bias - self.running_mean * scale
+        return (x.float() * scale[:, None, None] + bias[:, None, None]).to(x.dtype)
+
+
+class BatchNorm2d(_Norm):
+    """Eval-mode batch norm over the running statistics, in float32."""
+
+    def __init__(self, ch: int):
+        super().__init__(ch, reference_init=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv = torch.rsqrt(self.running_var + BN_EPS) * self.weight
+        y = (x.float() - self.running_mean[:, None, None]) * inv[:, None, None]
+        return (y + self.bias[:, None, None]).to(x.dtype)
+
+
+def init_weights(module: nn.Module, gen: torch.Generator) -> None:
+    """Fill every layer of `module` from `gen`, in registration order."""
+    for m in module.modules():
+        if m is not module and hasattr(m, "init_weights"):
+            m.init_weights(gen)
+
+
+class DepthwiseSepConv2d(nn.Module):
+    """The reference's inverted bottleneck (reference: layers.py:13-46):
+    grouped conv expanding each channel `expansion` times, optional FiLM
+    modulation by a positional encoding (out * scale + shift), pointwise
+    conv, batch norm, SiLU. stride < 1 upsamples by 1/stride (bilinear,
+    align_corners) before a stride-1 conv."""
+
+    def __init__(self, indim: int, outdim: int, kernel=3, stride: float = 1, expansion: int = 4,
+                 bias_out: bool = True, pe_channels: Optional[int] = None):
+        super().__init__()
+        kh, kw = _pair(kernel)
+        pad = (int(0.5 * (kh - 1)), int(0.5 * (kw - 1)))
+        self.stride = stride
+        conv_stride = 1 if stride < 1 else int(max(1, stride))
+        self.depth_wise = Conv2d(indim, expansion * indim, (kh, kw), stride=conv_stride,
+                                 padding=pad, groups=indim)
+        self.pt_wise = Conv2d(expansion * indim, outdim, 1, bias=bias_out)
+        self.norm = BatchNorm2d(outdim)
+        if pe_channels is not None:
+            self.pe_proj = Conv2d(pe_channels, 2 * expansion * indim, 1)
+
+    def forward(self, x: torch.Tensor, pe: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.stride < 1:
+            size = (np.array(x.shape[-2:]) * (1.0 / self.stride)).astype(np.int64)
+            x = resize_bilinear_align_corners(x, int(size[0]), int(size[1]))
+        out = self.depth_wise(x)
+        if pe is not None:
+            pe_m = self.pe_proj(F.silu(pe))
+            half = pe_m.shape[1] // 2
+            out = out * pe_m[:, :half] + pe_m[:, half:]
+        out = self.pt_wise(out)
+        return F.silu(self.norm(out))
