@@ -1,8 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel is one CUDA C++ source under ``csrc/`` with a plain C
-interface. At first use it is compiled with ``nvcc`` for Hopper
-(``sm_90a``) into a shared library under ``build/torch_kernels/`` beside
+interface of one or more launch functions. At first use it is compiled
+with ``nvcc`` for Hopper (``sm_90a``) into a shared library under ``build/torch_kernels/`` beside
 the package (a directory ``.gitignore`` covers), named by a hash of the
 source and the flags so an edited source is rebuilt, and loaded with
 ``ctypes``. Nothing here runs at import time: importing the port needs no
@@ -17,7 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import Optional, Sequence
+from typing import Mapping, Optional, Sequence
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -48,19 +48,19 @@ def _nvcc() -> str:
 
 
 class CudaKernel:
-    """One ``csrc/<name>.cu`` source, its C entry point and its launch count.
+    """One ``csrc/<name>.cu`` source, its C entry points and its launch count.
 
-    ``launches`` is incremented by the Python wrapper each time it launches
-    the kernel, and by nothing else, so a run can show that its main path
-    went through the kernel.
+    ``entry_points`` maps each C launch function of the source to its
+    argument types; every one returns an int status (cudaGetLastError).
+    ``launches`` is incremented by the Python wrapper once for each call
+    that launches the kernel, and by nothing else, so a run can show that
+    its main path went through the kernel.
     """
 
-    def __init__(self, name: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int):
+    def __init__(self, name: str, entry_points: Mapping[str, Sequence]):
         self.name = name
         self.source = os.path.join(CSRC_DIR, name + ".cu")
-        self.symbol = symbol
-        self.argtypes = list(argtypes)
-        self.restype = restype
+        self.entry_points = {sym: list(args) for sym, args in entry_points.items()}
         self.launches = 0
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
@@ -95,12 +95,13 @@ class CudaKernel:
                 if os.path.exists(tmp):
                     os.unlink(tmp)
         lib = ctypes.CDLL(path)
-        fn = getattr(lib, self.symbol)
-        fn.argtypes = self.argtypes
-        fn.restype = self.restype
+        for symbol, argtypes in self.entry_points.items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         self._lib = lib
         return lib
 
-    def __call__(self, *args) -> int:
-        """Call the C entry point; returns its status (cudaGetLastError)."""
-        return getattr(self.build(), self.symbol)(*args)
+    def call(self, symbol: str, *args) -> int:
+        """Call one C entry point; returns its status (cudaGetLastError)."""
+        return getattr(self.build(), symbol)(*args)

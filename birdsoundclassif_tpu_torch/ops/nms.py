@@ -10,6 +10,9 @@ same operation order, against a float32 threshold.
 ``greedy_nms_prefix`` dispatches by the tensor's device: a CPU tensor takes
 the plain version, a CUDA tensor launches the hand-written kernel
 (``csrc/nms_in_order.cu``) or raises. There is no fallback between them.
+``greedy_nms_bitmask_scan`` is a second plain version that follows the
+kernel's algorithm (suppression bitmask in 64-bit words, scan in chunks of
+64 pivots) so that its word logic is tested where no kernel can run.
 """
 
 from __future__ import annotations
@@ -20,22 +23,58 @@ import torch
 
 from ..kernels import CudaKernel
 
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
 NMS_KERNEL = CudaKernel(
     "nms_in_order",
-    "nms_in_order_launch",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-     ctypes.c_void_p, ctypes.c_void_p],
+    {
+        # boxes, n_valid, batch, n, iou_thresh, keep, stream
+        "nms_fused_launch": [_PTR, _PTR, _INT, _INT, ctypes.c_float, _PTR, _PTR],
+        # boxes, n_valid, batch, n, iou_thresh, mask, stream
+        "nms_mask_launch": [_PTR, _PTR, _INT, _INT, ctypes.c_float, _PTR, _PTR],
+        # mask, n_valid, batch, n, keep, stream
+        "nms_scan_launch": [_PTR, _PTR, _INT, _INT, _PTR, _PTR],
+    },
 )
 
-# Largest row the kernel holds in shared memory: 21 bytes a box within the
-# 227 KB (232,448 bytes) a Hopper block may use.
-NMS_KERNEL_MAX_N = 232_448 // 21
+NMS_WORD = 64  # pivots a chunk of the scan, columns a word of the bitmask
+
+# Rows up to this length take one launch: one block a row computes the row's
+# whole suppression bitmask in shared memory and scans it. Longer rows take
+# two launches, a bitmask computed by blocks all over the card and then a
+# scan over it. The one-launch kernel accepts rows of up to 1,024 boxes, but
+# one block alone is slow at the IoU compares: on an H100 the two launches
+# are the faster way from 128 boxes on (5.4 against 9.0 microseconds at
+# B=4, N=128; 4.9 against 4.2 at N=64; scripts/torch_nms_bench.py sweeps it).
+NMS_ONE_LAUNCH_MAX_N = 64
+
+# Largest row of the two-launch path: the scan keeps at least two buffers of
+# one chunk's mask tiles (N/64 tiles of 512 bytes each; the asynchronous
+# copies fill one while the other is read) and the removed bitset in shared
+# memory: (129 * N/64 + 3) words of 8 bytes within the 227 KB (232,448
+# bytes) a Hopper block may use, so N/64 <= 225.
+NMS_KERNEL_MAX_N = 225 * NMS_WORD
+
+
+def nms_mask_words(n: int) -> int:
+    """64-bit words of bitmask scratch a row of n boxes takes in the
+    two-launch path (csrc/nms_in_order.cu): the upper triangle, diagonal
+    included, of a w x w grid of tiles of 64 words, w = ceil(n / 64). The
+    scratch is never zeroed: the scan reads only what the mask phase wrote."""
+    w = -(-n // NMS_WORD)
+    return w * (w + 1) // 2 * NMS_WORD
+
+
+def _check_launch(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"nms_in_order: {what} launch failed with CUDA error {err}")
 
 
 def nms_in_order(boxes: torch.Tensor, n_valid: torch.Tensor, iou_thresh: float) -> torch.Tensor:
     """CUDA kernel: keep (B, N) bool for boxes (B, N, 4) float32 already in
     greedy order with the n_valid[b] (int32) valid entries first. Launches
-    on the current stream and does not synchronise."""
+    on the current stream and does not synchronise. One call counts as one
+    launch in ``NMS_KERNEL.launches``, whether it took one kernel (rows up
+    to NMS_ONE_LAUNCH_MAX_N) or two (bitmask, then scan)."""
     if boxes.device.type != "cuda" or n_valid.device != boxes.device:
         raise ValueError("nms_in_order takes CUDA tensors on one device")
     if boxes.dtype != torch.float32 or n_valid.dtype != torch.int32:
@@ -53,15 +92,25 @@ def nms_in_order(boxes: torch.Tensor, n_valid: torch.Tensor, iou_thresh: float) 
     b, n, _ = boxes.shape
     if n > NMS_KERNEL_MAX_N:
         raise ValueError(f"nms_in_order holds at most {NMS_KERNEL_MAX_N} boxes a row, got {n}")
+    if b > 65_535:
+        raise ValueError(f"nms_in_order takes at most 65,535 rows a call, got {b}")
     keep = torch.empty((b, n), dtype=torch.bool, device=boxes.device)
     if b == 0 or n == 0:
         return keep
+    thresh = float(iou_thresh)
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream(boxes.device).cuda_stream
-        err = NMS_KERNEL(boxes.data_ptr(), n_valid.data_ptr(), b, n, float(iou_thresh),
-                         keep.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"nms_in_order launch failed with CUDA error {err}")
+        if n <= NMS_ONE_LAUNCH_MAX_N:
+            _check_launch(NMS_KERNEL.call("nms_fused_launch", boxes.data_ptr(), n_valid.data_ptr(),
+                                          b, n, thresh, keep.data_ptr(), stream), "one-launch")
+        else:
+            # Freed on return while the scan may still run: the caching allocator
+            # hands the block out again only to work queued behind it on this stream.
+            mask = torch.empty((b, nms_mask_words(n)), dtype=torch.int64, device=boxes.device)
+            _check_launch(NMS_KERNEL.call("nms_mask_launch", boxes.data_ptr(), n_valid.data_ptr(),
+                                          b, n, thresh, mask.data_ptr(), stream), "mask")
+            _check_launch(NMS_KERNEL.call("nms_scan_launch", mask.data_ptr(), n_valid.data_ptr(),
+                                          b, n, keep.data_ptr(), stream), "scan")
     NMS_KERNEL.launches += 1
     return keep
 
@@ -103,6 +152,98 @@ def greedy_nms_in_order(
         inter = iw * ih
         row = inter / (areas + areas[..., i:i + 1] - inter)
         keep &= ~((row >= thresh) & (idx > i) & keep[..., i:i + 1])
+    return keep
+
+
+def _pack_words(bits: torch.Tensor) -> torch.Tensor:
+    """(..., 64 * W) bool -> (..., W) int64, bit k of word w = column 64w + k.
+    Bit 63 is the sign bit: the words are bit patterns, not numbers."""
+    shifts = torch.arange(NMS_WORD, dtype=torch.int64, device=bits.device)
+    words = bits.reshape(*bits.shape[:-1], -1, NMS_WORD).to(torch.int64) << shifts
+    return words.sum(-1)  # distinct powers of two: the sum is the OR, wrapping at bit 63
+
+
+_FULL_WORD = (1 << NMS_WORD) - 1
+
+
+def _resolve_serial(diag, removed: int) -> int:
+    """Kept set (a 64-bit pattern) of one chunk: pivot k is kept iff bit k of
+    the removed word is clear at its turn; a kept pivot ORs its diagonal word
+    (bits j > k only) in, a dropped pivot's word is ignored."""
+    for k in range(NMS_WORD):
+        if not (removed >> k) & 1:
+            removed |= diag[k]
+    return ~removed & _FULL_WORD
+
+
+def _resolve_rounds(diag, removed: int, rounds: int) -> int:
+    """The same set by fixed-point rounds, as the kernel's warp finds it: from
+    the guess "all kept", a round ORs the words of the pivots kept in the
+    guess, and the complement is the next guess. Round t makes positions
+    0..t right, and a guess that a round leaves unchanged is the one
+    solution; after `rounds` without one, the serial walk decides."""
+    kept = ~removed & _FULL_WORD
+    for _ in range(rounds):
+        dropped = removed
+        for k in range(NMS_WORD):
+            if (kept >> k) & 1:
+                dropped |= diag[k]
+        nxt = ~dropped & _FULL_WORD
+        if nxt == kept:
+            return kept
+        kept = nxt
+    return _resolve_serial(diag, removed)
+
+
+def greedy_nms_bitmask_scan(boxes: torch.Tensor, n_valid: torch.Tensor, iou_thresh: float,
+                            rounds: int = 12) -> torch.Tensor:
+    """Plain version that follows the CUDA kernel's algorithm, for tests:
+    keep (B, N) bool for boxes (B, N, 4) with the n_valid[b] valid entries
+    first. Equal to ``greedy_nms_in_order(valid_prefix=True)`` bit for bit.
+
+    For each chunk of 64 pivots: the chunk's rows of the suppression bitmask
+    (IoU(i, j) >= thresh for i < j < n_valid, packed in 64-bit words, word w
+    = columns 64w..64w+63); the 64 keep decisions from the incoming removed
+    word and the diagonal words alone; then the kept rows' words ORed into
+    the removed words to the right. ``rounds`` is the number of fixed-point
+    rounds the chunk's decisions get before the serial walk (0: the serial
+    walk alone). Never used on the main path."""
+    boxes = boxes.float()
+    b, n, _ = boxes.shape
+    thresh = torch.tensor(iou_thresh, dtype=torch.float32, device=boxes.device)
+    keep = torch.zeros((b, n), dtype=torch.bool, device=boxes.device)
+    full = _FULL_WORD
+    for r in range(b):
+        nv = max(0, min(n, int(n_valid[r])))
+        wn = -(-nv // NMS_WORD)
+        cols = wn * NMS_WORD
+        row = torch.zeros((cols, 4), dtype=torch.float32, device=boxes.device)
+        row[:nv] = boxes[r, :nv]
+        x1, y1, x2, y2 = row.unbind(-1)
+        areas = (x2 - x1 + 1.0) * (y2 - y1 + 1.0)
+        j = torch.arange(cols, device=boxes.device)
+        # removed bitset, as Python ints holding 64-bit patterns: columns at
+        # or past n_valid start out removed
+        removed = [full & (full << max(0, min(NMS_WORD, nv - w * NMS_WORD))) for w in range(wn)]
+        for c in range(wn):
+            i = j[c * NMS_WORD:(c + 1) * NMS_WORD, None]
+            bi = row[c * NMS_WORD:(c + 1) * NMS_WORD, None, :]
+            iw = torch.clamp(torch.minimum(x2, bi[..., 2]) - torch.maximum(x1, bi[..., 0]) + 1.0,
+                             min=0.0)
+            ih = torch.clamp(torch.minimum(y2, bi[..., 3]) - torch.maximum(y1, bi[..., 1]) + 1.0,
+                             min=0.0)
+            inter = iw * ih
+            iou = inter / (areas + areas[c * NMS_WORD:(c + 1) * NMS_WORD, None] - inter)
+            bits = (iou >= thresh) & (j > i) & (j < nv) & (i < nv)
+            words = [[w & full for w in ws] for ws in _pack_words(bits).tolist()]  # (64, wn)
+            # the 64 decisions of the chunk, from its diagonal words alone
+            kept = _resolve_rounds([ws[c] for ws in words], removed[c], rounds)
+            for k in range(NMS_WORD):
+                if (kept >> k) & 1:
+                    for w in range(c + 1, wn):
+                        removed[w] |= words[k][w]
+                    if c * NMS_WORD + k < n:
+                        keep[r, c * NMS_WORD + k] = True
     return keep
 
 

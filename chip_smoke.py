@@ -6,12 +6,21 @@
 Run from the root of a checkout. It needs one CUDA card, nvcc and the
 port's sources, and nothing of the JAX package. Phases, in order:
 
-  1. The card's name and power limit (nvidia-smi); the NMS kernel built
+  1. The card's name and power limit (nvidia-smi); the NMS kernels built
      from csrc/nms_in_order.cu with nvcc for sm_90a.
   2. Kernel phase: the kernel against its plain PyTorch version on the card
      at the main path's shapes (B=4 N=500 thresh 0.7, B=4 N=50 thresh 0.3,
-     B=1 N=8192 thresh 0.3 full and partial) and at an IoU tie; keep masks
-     must be equal. Median times of both.
+     B=1 N=8192 thresh 0.3 full and partial), at the training shape (B=2
+     N=3000 thresh 0.7), at edge shapes around the 64-bit words and the
+     switch between the one-launch and the two-launch path (rows of one
+     batch with n_valid 0, 1, 64, 65 and N), at the scan's worst cases
+     (disjoint boxes, one dense cluster, a chain of boxes each dropping the
+     next) and at IoU ties; keep masks must be equal, and the same launch
+     twice must give the same mask, with the allocator's free blocks
+     poisoned first so that a read of uninitialised scratch shows. Times of
+     both: median of 20 calls between CUDA events (the host's time to
+     enqueue the call included), and the kernel's device time from a CUDA
+     graph of 20 calls (host excluded).
   3. Main path: a random-weight checkpoint (args + model_chkpt.pt) at the
      flagship NbmConfig() (ResNet-50, 150 classes, 375x1024, bf16), a
      synthetic 120 s PCM16 wav, and the port's CLI on cuda with
@@ -93,6 +102,30 @@ def random_boxes(rng, b: int, n: int) -> np.ndarray:
     boxes[..., 2] = boxes[..., 0] + np.round(rng.uniform(4, 200, (b, n)))
     boxes[..., 3] = boxes[..., 1] + np.round(rng.uniform(4, 80, (b, n)))
     return boxes
+
+
+def disjoint_boxes(b: int, n: int) -> np.ndarray:
+    """No two boxes touch: every box is kept, every row of the mask is used."""
+    k = np.arange(n)
+    x, y = 20.0 * (k % 100), 20.0 * (k // 100)
+    return np.broadcast_to(np.stack([x, y, x + 9, y + 9], -1).astype(np.float32),
+                           (b, n, 4)).copy()
+
+
+def cluster_boxes(b: int, n: int) -> np.ndarray:
+    """One dense cluster: the first box drops all the others."""
+    k = np.arange(n)
+    one = np.stack([100.0 + k % 2, 100.0 + k % 3, 300.0 - k % 2, 260.0 - k % 3], -1)
+    return np.broadcast_to(one.astype(np.float32), (b, n, 4)).copy()
+
+
+def chain_boxes(b: int, n: int) -> np.ndarray:
+    """Box k overlaps box k+1 alone, with IoU 0.2: at thresh 0.15 every kept
+    box drops the next, which saves the one after: the longest chain of
+    dependent decisions n boxes can have."""
+    x = 10.0 * np.arange(n, dtype=np.float32)
+    one = np.stack([x, np.zeros_like(x), x + 14, np.full_like(x, 9)], -1)
+    return np.broadcast_to(one, (b, n, 4)).copy()
 
 
 def tie_boxes() -> tuple:
@@ -197,33 +230,72 @@ def main() -> int:
             times.append(s.elapsed_time(e))
         return float(np.median(times))
 
+    def device_ms(fn, k: int = 20, reps: int = 10) -> float:
+        """Device time of one call: k calls captured into a CUDA graph, the
+        replay timed between events, median over reps, over k."""
+        fn()  # warm-up, outside the capture
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(k):
+                fn()
+        return time_ms(graph.replay, reps) / k
+
+    def poison(boxes) -> None:
+        """Leave the allocator free blocks full of ones, of the sizes the
+        wrapper asks for, so that its torch.empty scratch starts as garbage."""
+        b, n, _ = boxes.shape
+        for words in (b * nms_mod.nms_mask_words(n), (2 << 20) // 8, (20 << 20) // 8):
+            torch.full((max(words, 1),), -1, dtype=torch.int64, device=dev)
+        torch.full((b, n), True, dtype=torch.bool, device=dev)
+
     def compare(boxes, nv, thr, what: str) -> float:
+        poison(boxes)
         keep_k = run_kernel(boxes, nv, thr)
+        keep_again = run_kernel(boxes, nv, thr)
         keep_p = run_plain(boxes, nv, thr)
         torch.cuda.synchronize()
         diff = (keep_k != keep_p).sum().item()
         check(diff == 0, f"{what}: kernel and plain keep masks differ in {diff} places")
+        check(torch.equal(keep_k, keep_again), f"{what}: the same launch twice gave two masks")
         return float((keep_k.float() - keep_p.float()).abs().max().item()) if keep_k.numel() else 0.0
 
-    # ---- 2. kernel phase at the main path's shapes ----
+    # ---- 2. kernel phase: the port's shapes, edges, worst cases ----
     rng = np.random.default_rng(args.seed)
-    cases = [
+    switch = nms_mod.NMS_ONE_LAUNCH_MAX_N
+    cases = [(name, random_boxes(rng, b, n), nvs, thr) for name, b, n, thr, nvs in (
         ("proposal", 4, 500, 0.7, [500, 431, 1, 0]),
         ("detection", 4, 50, 0.3, [50, 37, 1, 0]),
         ("merge-full", 1, 8192, 0.3, [8192]),
         ("merge-partial", 1, 8192, 0.3, [2611]),
-    ]
+        ("training-proposal", 2, 3000, 0.7, [3000, 2207]),
+    )]
+    for n in sorted({1, 63, 64, 65, 128, switch, switch + 1}):
+        cases.append((f"edge-{n}", random_boxes(rng, 5, n),
+                      [0, 1, min(64, n), min(65, n), n], 0.5))
+    for b, n in ((4, 500), (1, 8192)):
+        cases += [(f"disjoint-{n}", disjoint_boxes(b, n), [n] * b, 0.5),
+                  (f"cluster-{n}", cluster_boxes(b, n), [n] * b, 0.5),
+                  (f"chain-{n}", chain_boxes(b, n), [n] * b, 0.15)]
     max_err = 0.0
-    for name, b, n, thr, nvs in cases:
-        boxes = torch.from_numpy(random_boxes(rng, b, n)).to(dev)
+    synthetic = {}
+    for name, np_boxes, nvs, thr in cases:
+        b, n, _ = np_boxes.shape
+        boxes = torch.from_numpy(np_boxes).to(dev)
         nv = torch.tensor(nvs, dtype=torch.int32, device=dev)
         max_err = max(max_err, compare(boxes, nv, thr, name))
         k_ms = time_ms(lambda: run_kernel(boxes, nv, thr), 20)
+        d_ms = device_ms(lambda: run_kernel(boxes, nv, thr))
         p_ms = time_ms(lambda: run_plain(boxes, nv, thr), 3)
         keep = run_kernel(boxes, nv, thr).cpu().numpy()
-        t_bytes, t_ops, pairs = bound(boxes.cpu().numpy(), np.asarray(nvs), keep, thr)
-        print(f"kernel {name}: B={b} N={n} thresh={thr} n_valid={nvs} equal; "
-              f"kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {max(t_bytes, t_ops):.6f} ms "
+        t_bytes, t_ops, pairs = bound(np_boxes, np.asarray(nvs), keep, thr)
+        synthetic[name] = dict(shape=[b, n], thresh=thr, n_valid=nvs, ms=k_ms, device_ms=d_ms,
+                               plain_ms=p_ms, bound_ms=max(t_bytes, t_ops),
+                               bound_by="bytes" if t_bytes >= t_ops else "operations",
+                               ious=pairs, kept=int(keep.sum()))
+        print(f"kernel {name}: B={b} N={n} thresh={thr} n_valid={nvs} equal, kept "
+              f"{int(keep.sum())}; kernel {k_ms:.4f} ms a call, {d_ms:.5f} ms on the device, "
+              f"plain {p_ms:.3f} ms, bound {max(t_bytes, t_ops):.6f} ms "
               f"({'bytes' if t_bytes >= t_ops else 'operations'}, {pairs} IoUs)", flush=True)
     for thr in (0.7, 0.3):
         tb, tn = tie_boxes()
@@ -347,15 +419,17 @@ def main() -> int:
         use = "merge" if b == 1 else ("proposal" if thr == cfg.nms_thresh else "detection")
         max_err = max(max_err, compare(boxes, nv, thr, f"recorded {use}"))
         k_ms = time_ms(lambda: run_kernel(boxes, nv, thr), 10)
+        d_ms = device_ms(lambda: run_kernel(boxes, nv, thr))
         p_ms = time_ms(lambda: run_plain(boxes, nv, thr), 1)
         keep = run_kernel(boxes, nv, thr).cpu().numpy()
         t_bytes, t_ops, pairs = bound(boxes.cpu().numpy(), nv.cpu().numpy(), keep, thr)
         u = uses.setdefault(use, dict(launches=0, shape=[b, n], thresh=thr, n_valid=[],
-                                      ms=0.0, plain_ms=0.0, bound_ms=0.0, ious=0,
+                                      ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0, ious=0,
                                       bytes_ms=0.0, ops_ms=0.0))
         u["launches"] += 1
         u["n_valid"].append(int(nv.max().item()))
         u["ms"] += k_ms
+        u["device_ms"] += d_ms
         u["plain_ms"] += p_ms
         u["bound_ms"] += max(t_bytes, t_ops)
         u["ious"] += pairs
@@ -363,10 +437,11 @@ def main() -> int:
         u["ops_ms"] += t_ops
     for use, u in uses.items():
         print(f"recorded {use}: {u['launches']} launches, shape {u['shape']}, thresh "
-              f"{u['thresh']}, n_valid max {max(u['n_valid'])}; kernel {u['ms']:.4f} ms, "
-              f"plain {u['plain_ms']:.3f} ms, bound {u['bound_ms']:.6f} ms "
-              f"({u['ious']} IoUs) per file", flush=True)
+              f"{u['thresh']}, n_valid max {max(u['n_valid'])}; kernel {u['ms']:.4f} ms in calls, "
+              f"{u['device_ms']:.4f} ms on the device, plain {u['plain_ms']:.3f} ms, bound "
+              f"{u['bound_ms']:.6f} ms ({u['ious']} IoUs) per file", flush=True)
     tot_ms = sum(u["ms"] for u in uses.values())
+    tot_device = sum(u["device_ms"] for u in uses.values())
     tot_plain = sum(u["plain_ms"] for u in uses.values())
     tot_bound = sum(u["bound_ms"] for u in uses.values())
     bytes_ms = sum(u["bytes_ms"] for u in uses.values())
@@ -443,7 +518,11 @@ def main() -> int:
         "bound_ms": tot_bound,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
+        "device_ms": tot_device,
+        "training_shape_ms": synthetic["training-proposal"]["ms"],
+        "training_shape_device_ms": synthetic["training-proposal"]["device_ms"],
         "per_file_uses": uses,
+        "synthetic": synthetic,
         "card": card,
     }]
     print(json.dumps({"kernels": kernels}))

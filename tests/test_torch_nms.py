@@ -6,6 +6,12 @@ Pallas kernel (interpret mode, as tests/test_pallas_nms.py runs it) and of
 the JAX greedy_nms_in_order, at the main path's three shapes and at an IoU
 exactly equal to float32(thresh). select_post_nms and greedy_nms are exact
 too. Inputs are made with numpy from a seed and handed to both.
+
+The CUDA kernel computes a suppression bitmask in 64-bit words and scans it
+in chunks of 64 pivots; greedy_nms_bitmask_scan is that algorithm in plain
+PyTorch, and is held here, exactly, against the pivot-by-pivot plain
+version and against the JAX side at word boundaries, unequal n_valid in a
+batch, IoU ties, and the scan's worst cases.
 """
 
 import numpy as np
@@ -111,3 +117,113 @@ def test_kernel_wrapper_dispatch():
         tnms.nms_in_order(boxes, nv, 0.5)
     with pytest.raises(ValueError, match="cuda or cpu"):
         tnms.greedy_nms_prefix(boxes.to("meta"), nv.to("meta"), 0.5)
+
+
+def _bitmask(boxes, n_valid, thresh, **kw):
+    return tnms.greedy_nms_bitmask_scan(torch.from_numpy(boxes), torch.from_numpy(n_valid),
+                                        thresh, **kw).numpy()
+
+
+def _disjoint(n):
+    k = np.arange(n)
+    x, y = 20.0 * (k % 100), 20.0 * (k // 100)
+    return np.stack([x, y, x + 9, y + 9], -1).astype(np.float32)[None]
+
+
+def _cluster(n):
+    k = np.arange(n)
+    return np.stack([100.0 + k % 2, 100.0 + k % 3, 300.0 - k % 2, 260.0 - k % 3],
+                    -1).astype(np.float32)[None]
+
+
+def _chain(n):
+    """Box k overlaps box k+1 alone (IoU 0.2): at thresh 0.15 each kept box
+    drops the next, the longest chain of dependent decisions there is."""
+    x = 10.0 * np.arange(n, dtype=np.float32)
+    return np.stack([x, np.zeros_like(x), x + 14, np.full_like(x, 9)], -1)[None]
+
+
+@pytest.mark.parametrize(
+    "n,thresh,n_valid",
+    [
+        (1, 0.5, [1, 0]),
+        (63, 0.3, [63, 62, 1]),
+        (64, 0.3, [64, 63, 0]),
+        (65, 0.7, [65, 64, 1]),
+        (130, 0.3, [130, 128, 129, 64, 65]),   # word boundaries, unequal in a batch
+        (130, 0.7, [127, 1, 0, 130, 2]),
+        (500, 0.7, [500, 431, 448]),           # proposal NMS; 448 = 7 whole words
+        (500, 0.3, [449, 64, 500]),
+    ],
+)
+def test_bitmask_scan_matches_plain_and_pallas(n, thresh, n_valid):
+    rng = np.random.default_rng(1000 + n + len(n_valid))
+    boxes = _boxes(rng, len(n_valid), n)
+    nv = np.asarray(n_valid, np.int32)
+    got = _bitmask(boxes, nv, thresh)
+    np.testing.assert_array_equal(got, _plain(boxes, nv, thresh))
+    want = np.asarray(nms_in_order_pallas(jnp.asarray(boxes), jnp.asarray(nv), thresh,
+                                          interpret=True))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n,thresh,n_valid", [(3000, 0.7, [3000, 2207]), (8192, 0.3, [2611])])
+def test_bitmask_scan_matches_jax_at_large_n(n, thresh, n_valid):
+    """The training proposal NMS (B=2, N=3000) and the merge NMS (N=8192),
+    against the JAX greedy scan (interpret mode is too slow at this size)."""
+    rng = np.random.default_rng(n)
+    boxes = _boxes(rng, len(n_valid), n)
+    nv = np.asarray(n_valid, np.int32)
+    got = _bitmask(boxes, nv, thresh)
+    for r, k in enumerate(n_valid):
+        want = np.asarray(jnms.greedy_nms_in_order(jnp.asarray(boxes[r]),
+                                                   jnp.asarray(np.arange(n) < k), thresh,
+                                                   valid_prefix=True))
+        np.testing.assert_array_equal(got[r], want)
+
+
+@pytest.mark.parametrize("thresh,suppressed", [(0.7, [1]), (0.3, [1, 3]), (0.5, [1])])
+def test_bitmask_scan_iou_tie_at_threshold(thresh, suppressed):
+    boxes = np.asarray([[[0, 0, 9, 0], [0, 0, 6, 0], [20, 5, 29, 5], [20, 5, 22, 5],
+                         [40, 0, 49, 9]]], np.float32)
+    nv = np.asarray([5], np.int32)
+    got = _bitmask(boxes, nv, thresh)
+    np.testing.assert_array_equal(got, _plain(boxes, nv, thresh))
+    assert sorted(np.nonzero(~got[0])[0].tolist()) == suppressed
+
+
+@pytest.mark.parametrize("rounds", [0, 2, 12])
+@pytest.mark.parametrize(
+    "make,n,thresh,kept",
+    [
+        (_disjoint, 200, 0.5, 200),   # nothing suppressed: every mask row is ORed
+        (_cluster, 200, 0.5, 1),      # one dense cluster: the first box drops the rest
+        (_chain, 200, 0.15, 100),     # a chain as long as the chunk: the serial walk decides
+    ],
+)
+def test_bitmask_scan_worst_cases(make, n, thresh, kept, rounds):
+    """The chunk's decisions by fixed-point rounds (with the serial walk
+    behind them) and by the serial walk alone (rounds=0) give one set."""
+    boxes = make(n)
+    nv = np.asarray([n], np.int32)
+    got = _bitmask(boxes, nv, thresh, rounds=rounds)
+    np.testing.assert_array_equal(got, _plain(boxes, nv, thresh))
+    assert int(got.sum()) == kept
+    want = np.asarray(nms_in_order_pallas(jnp.asarray(boxes), jnp.asarray(nv), thresh,
+                                          interpret=True))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_mask_scratch_size_and_kernel_limits():
+    """The wrapper sizes the bitmask scratch as the kernel lays it out: the
+    upper triangle of a w x w grid of 64-word tiles, w = ceil(N / 64)."""
+    assert tnms.nms_mask_words(1) == 64
+    assert tnms.nms_mask_words(64) == 64
+    assert tnms.nms_mask_words(65) == 3 * 64
+    assert tnms.nms_mask_words(3000) == 47 * 48 // 2 * 64
+    assert tnms.NMS_ONE_LAUNCH_MAX_N <= 1024 < tnms.NMS_KERNEL_MAX_N
+    # two buffers of one chunk's tiles, the removed words, the kept word and
+    # two barriers fit a Hopper block's 227 KB at the limit, and not beyond
+    words = tnms.NMS_KERNEL_MAX_N // 64
+    assert (2 * words * 64 + words + 1 + 2) * 8 <= 232_448
+    assert (2 * (words + 1) * 64 + (words + 1) + 1 + 2) * 8 > 232_448
