@@ -1,12 +1,13 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written native code.
 
-Each kernel is one CUDA C++ source under ``csrc/`` with a plain C
-interface of one or more launch functions. At first use it is compiled
-with ``nvcc`` for Hopper (``sm_90a``) into a shared library under ``build/torch_kernels/`` beside
-the package (a directory ``.gitignore`` covers), named by a hash of the
-source and the flags so an edited source is rebuilt, and loaded with
-``ctypes``. Nothing here runs at import time: importing the port needs no
-toolkit and no card.
+Each CUDA kernel is one CUDA C++ source under ``csrc/`` with a plain C
+interface of one or more launch functions; each host routine is one C
+source there. At first use a source is compiled (``nvcc`` for Hopper,
+``sm_90a``, or the host C compiler) into a shared library under
+``build/torch_kernels/`` beside the package (a directory ``.gitignore``
+covers), named by a hash of the source and the flags so an edited source
+is rebuilt, and loaded with ``ctypes``. Nothing here runs at import time:
+importing the port needs no toolkit, no compiler and no card.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+CC_FLAGS = ("-std=c99", "-O2", "-shared", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -47,32 +49,44 @@ def _nvcc() -> str:
     )
 
 
-class CudaKernel:
-    """One ``csrc/<name>.cu`` source, its C entry points and its launch count.
+def _cc() -> str:
+    found = shutil.which(os.environ.get("CC", "cc")) or shutil.which("gcc")
+    if found:
+        return found
+    raise RuntimeError(
+        "no C compiler found: the port's host routines are built at first use "
+        "with the host C compiler (put cc or gcc on PATH, or set CC)"
+    )
 
-    ``entry_points`` maps each C launch function of the source to its
-    argument types; every one returns an int status (cudaGetLastError).
-    ``launches`` is incremented by the Python wrapper once for each call
-    that launches the kernel, and by nothing else, so a run can show that
-    its main path went through the kernel.
-    """
+
+class NativeLibrary:
+    """One ``csrc/<name><suffix>`` source and its C entry points.
+
+    ``entry_points`` maps each C function of the source to its argument
+    types; every one returns an int status."""
+
+    suffix = ".c"
+    flags: Sequence[str] = CC_FLAGS
 
     def __init__(self, name: str, entry_points: Mapping[str, Sequence]):
         self.name = name
-        self.source = os.path.join(CSRC_DIR, name + ".cu")
+        self.source = os.path.join(CSRC_DIR, name + self.suffix)
         self.entry_points = {sym: list(args) for sym, args in entry_points.items()}
-        self.launches = 0
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
 
+    def compiler(self) -> str:
+        return _cc()
+
     def library_path(self) -> str:
         with open(self.source, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+            digest = hashlib.sha256(f.read() + " ".join(self.flags).encode()).hexdigest()
         return os.path.join(BUILD_DIR, f"lib{self.name}-{digest[:16]}.so")
 
     def build(self) -> ctypes.CDLL:
         """Compile (unless this source and these flags were built before)
-        and load the library. Raises with nvcc's output when it fails."""
+        and load the library. Raises with the compiler's output when it
+        fails."""
         if self._lib is not None:
             return self._lib
         path = self.library_path()
@@ -82,13 +96,13 @@ class CudaKernel:
             os.close(fd)
             try:
                 proc = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, self.source],
+                    [self.compiler(), *self.flags, "-o", tmp, self.source],
                     capture_output=True, text=True,
                 )
                 self.build_log = proc.stdout + proc.stderr
                 if proc.returncode != 0:
                     raise RuntimeError(
-                        f"nvcc failed to build {self.source}:\n{self.build_log}"
+                        f"{self.compiler()} failed to build {self.source}:\n{self.build_log}"
                     )
                 os.replace(tmp, path)  # atomic: concurrent builds agree
             finally:
@@ -103,5 +117,23 @@ class CudaKernel:
         return lib
 
     def call(self, symbol: str, *args) -> int:
-        """Call one C entry point; returns its status (cudaGetLastError)."""
+        """Call one C entry point; returns its status."""
         return getattr(self.build(), symbol)(*args)
+
+
+class CudaKernel(NativeLibrary):
+    """One ``csrc/<name>.cu`` source, its C launch functions (each returns
+    cudaGetLastError) and its launch count. ``launches`` is incremented by
+    the Python wrapper once for each call that launches the kernel, and by
+    nothing else, so a run can show that its main path went through the
+    kernel."""
+
+    suffix = ".cu"
+    flags = NVCC_FLAGS
+
+    def __init__(self, name: str, entry_points: Mapping[str, Sequence]):
+        super().__init__(name, entry_points)
+        self.launches = 0
+
+    def compiler(self) -> str:
+        return _nvcc()

@@ -1,7 +1,8 @@
-"""NbmModel: backbone -> attention -> FPN -> RPN -> RCNN, eval forward.
+"""NbmModel: backbone -> attention -> FPN -> RPN -> RCNN.
 
 Port of ``birdsoundclassif_tpu/models/detector.py`` for the default module
-order (reference: nbm_model.py:22-80, head.py:9-42). The module tree carries
+order (reference: nbm_model.py:22-80, head.py:9-42): the eval forward, and
+the two stages apart for the training criterion. The module tree carries
 the reference's state_dict keys, so a reference ``model_chkpt.pt`` loads
 directly. The conv stack (backbone, attention, FPN) runs in
 ``cfg.compute_dtype``; box geometry, NMS and the heads' outputs stay
@@ -9,6 +10,8 @@ float32, as in the JAX package.
 """
 
 from __future__ import annotations
+
+from typing import List, NamedTuple
 
 import torch
 from torch import nn
@@ -21,6 +24,17 @@ from .fpn import FPN
 from .rcnn import RCNN, Detections, fast_rcnn_inference
 from .roi import roi_pool
 from .rpn import RPN, Proposals, proposal_layer
+
+
+class FirstStageOut(NamedTuple):
+    rois: torch.Tensor            # (B, postN, 4)
+    roi_scores: torch.Tensor      # (B, postN)
+    roi_valid: torch.Tensor       # (B, postN) bool
+    rpn_ok: torch.Tensor          # scalar bool
+    rpn_cls_scores: torch.Tensor  # (B, th, tw, L*A, 2)
+    rpn_bbox_reg: torch.Tensor    # (B, th, tw, L*A, 4)
+    fpn_out: List[torch.Tensor]
+
 
 class _FastRCNN(nn.Module):
     def __init__(self, cfg):
@@ -62,8 +76,12 @@ class NbmModel(nn.Module):
         tnn.init_weights(self, generator)
         return self.to(device)
 
-    def forward_first_stage(self, samples: torch.Tensor):
-        """samples (B, C_in, H, W) -> (Proposals, FPN pyramid)."""
+    def forward_first_stage(self, samples: torch.Tensor) -> FirstStageOut:
+        """samples (B, C_in, H, W) -> proposals, RPN outputs and the FPN
+        pyramid. The module's train()/eval() mode picks the batch norms'
+        statistics and the proposal layer's top-N (pre/post_nms_topN in
+        train(), the _eval ones in eval()). Proposals carry no gradient
+        (reference: head.py:36-37)."""
         x = samples.to(self.compute_dtype)
         backbone = self.backbone[0]
         feats = backbone(x)
@@ -71,8 +89,18 @@ class NbmModel(nn.Module):
             feats = [f + p for f, p in zip(feats, backbone.position_embeddings(feats))]
         fpn_out = self.fpn(self.attn(feats))
         cls_scores, bbox_reg = self.head.rpn(fpn_out)
-        props: Proposals = proposal_layer(cls_scores, bbox_reg, self.cfg)
-        return props, fpn_out
+        props: Proposals = proposal_layer(cls_scores.detach(), bbox_reg.detach(), self.cfg,
+                                          training=self.training)
+        return FirstStageOut(rois=props.rois, roi_scores=props.scores, roi_valid=props.valid,
+                             rpn_ok=props.rpn_ok, rpn_cls_scores=cls_scores,
+                             rpn_bbox_reg=bbox_reg, fpn_out=fpn_out)
+
+    def forward_second_stage_train(self, fpn_out: List[torch.Tensor], rois: torch.Tensor):
+        """RoI pool + RCNN head on `rois` (B, R, 4) -> (bbox_reg (B*R,
+        4*(C+1)), bbox_classes (B*R, C+1)). In eval() this is the
+        validation regime (running-stat batch norms)."""
+        pooled, pe, _ = roi_pool(rois, fpn_out, self.cfg)
+        return self.head.fast_rcnn.rcnn(pooled, pe)
 
     def forward(self, samples: torch.Tensor, nms_thresh: float = 0.3,
                 min_score: float = 0.5) -> Detections:
@@ -81,8 +109,7 @@ class NbmModel(nn.Module):
         if samples.dim() == 3:
             samples = samples[:, None]
         with full_f32():
-            props, fpn_out = self.forward_first_stage(samples)
-            pooled, pe, _ = roi_pool(props.rois, fpn_out, self.cfg)
-            bbox_reg, bbox_classes = self.head.fast_rcnn.rcnn(pooled, pe)
-            return fast_rcnn_inference(bbox_reg, bbox_classes, props.rois, props.valid,
+            out = self.forward_first_stage(samples)
+            bbox_reg, bbox_classes = self.forward_second_stage_train(out.fpn_out, out.rois)
+            return fast_rcnn_inference(bbox_reg, bbox_classes, out.rois, out.roi_valid,
                                        self.cfg, nms_thresh, min_score)

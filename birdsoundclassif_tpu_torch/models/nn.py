@@ -1,10 +1,12 @@
-"""Building blocks of the eval path: NCHW modules with the reference's
-state_dict keys.
+"""Building blocks of the detector: NCHW modules with the reference's
+state_dict keys, for inference and training.
 
 Port of ``birdsoundclassif_tpu/models/nn.py``. Mixed precision follows the
 JAX package: parameters are stored in float32 and cast to the activation
 dtype inside each layer, so one cast of the input flips a whole stack to
-bf16; batch norms compute in float32 and cast back.
+bf16; batch norms compute in float32 and cast back. Conv and linear
+weights and the live batch norms' affine weights are trainable parameters;
+the frozen batch norms and all running statistics are buffers.
 
 Parameters are allocated uninitialised; ``init_weights`` fills them from an
 explicit ``torch.Generator`` with the JAX package's distributions (kaiming
@@ -61,9 +63,9 @@ class Conv2d(nn.Module):
         kh, kw = _pair(kernel)
         self.stride, self.padding = _pair(stride), _pair(padding)
         self.groups, self.dilation, self.init = groups, dilation, init
-        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups, kh, kw), requires_grad=False)
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups, kh, kw))
         if bias:
-            self.bias = nn.Parameter(torch.empty(out_ch), requires_grad=False)
+            self.bias = nn.Parameter(torch.empty(out_ch))
         else:
             self.register_parameter("bias", None)
 
@@ -92,8 +94,8 @@ class Linear(nn.Module):
     def __init__(self, in_dim: int, out_dim: int, init: str = "kaiming"):
         super().__init__()
         self.init = init
-        self.weight = nn.Parameter(torch.empty(out_dim, in_dim), requires_grad=False)
-        self.bias = nn.Parameter(torch.empty(out_dim), requires_grad=False)
+        self.weight = nn.Parameter(torch.empty(out_dim, in_dim))
+        self.bias = nn.Parameter(torch.empty(out_dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
@@ -108,12 +110,22 @@ class Linear(nn.Module):
 
 
 class _Norm(nn.Module):
-    def __init__(self, ch: int, reference_init: bool):
+    """weight/bias (the JAX package's scale/bias) and the running
+    statistics; ``affine_params`` makes weight/bias trainable parameters,
+    otherwise all four are buffers. The state_dict keys are the same."""
+
+    def __init__(self, ch: int, reference_init: bool, affine_params: bool):
         super().__init__()
         self.reference_init = reference_init
-        for name in ("weight", "bias", "running_mean", "running_var"):
+        for name in ("weight", "bias"):
+            if affine_params:
+                setattr(self, name, nn.Parameter(torch.empty(ch)))
+            else:
+                self.register_buffer(name, torch.empty(ch))
+        for name in ("running_mean", "running_var"):
             self.register_buffer(name, torch.empty(ch))
 
+    @torch.no_grad()
     def init_weights(self, gen: torch.Generator) -> None:
         if self.reference_init:
             _normal(self.weight, 0.02, gen)
@@ -126,10 +138,10 @@ class _Norm(nn.Module):
 
 class FrozenBatchNorm2d(_Norm):
     """Running stats and affine are constants (reference: backbone.py:26-62,
-    eps added before rsqrt); computed in float32."""
+    eps added before rsqrt); computed in float32. Never trained."""
 
     def __init__(self, ch: int):
-        super().__init__(ch, reference_init=False)
+        super().__init__(ch, reference_init=False, affine_params=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         scale = self.weight * torch.rsqrt(self.running_var + BN_EPS)
@@ -138,14 +150,34 @@ class FrozenBatchNorm2d(_Norm):
 
 
 class BatchNorm2d(_Norm):
-    """Eval-mode batch norm over the running statistics, in float32."""
+    """Batch norm in float32 (JAX package: models/nn.py:291-316).
+
+    In ``eval()`` it normalises with the running statistics. In ``train()``
+    it normalises with the batch's mean and biased variance over (N, H, W)
+    and updates the running statistics in place, with momentum 0.1 and the
+    unbiased variance, as torch's BatchNorm2d does. The JAX package returns
+    the new statistics and merges them after the optimizer update; the
+    values are the same as long as each norm runs once a step."""
+
+    momentum = 0.1
 
     def __init__(self, ch: int):
-        super().__init__(ch, reference_init=True)
+        super().__init__(ch, reference_init=True, affine_params=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.running_var + BN_EPS) * self.weight
-        y = (x.float() - self.running_mean[:, None, None]) * inv[:, None, None]
+        x32 = x.float()
+        if self.training:
+            var, mean = torch.var_mean(x32, dim=(0, 2, 3), correction=0)
+            n = x.shape[0] * x.shape[2] * x.shape[3]
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var
+                                       + m * (var * (n / max(1, n - 1))))
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + BN_EPS) * self.weight
+        y = (x32 - mean[:, None, None]) * inv[:, None, None]
         return (y + self.bias[:, None, None]).to(x.dtype)
 
 

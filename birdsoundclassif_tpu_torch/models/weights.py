@@ -1,5 +1,5 @@
-"""Weights into the port: JAX params, ``params.npz`` and reference
-``model_chkpt.pt``.
+"""Weights into and out of the port: JAX params, ``params.npz`` and
+reference ``model_chkpt.pt``.
 
 The port's modules carry the reference torch layout and state_dict keys, so
 a reference checkpoint (``{"checkpoints": state_dict}``, reference:
@@ -14,6 +14,10 @@ those keys with a numpy-only copy of the JAX package's
   * the two RCNN output linears also permute their input rows from the JAX
     (ph, pw, C) flatten to the reference's (C, ph, pw) (:40-52)
   * BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var
+
+``state_dict_to_params`` is the inverse: the port's trainer writes its
+checkpoints as ``params.npz`` in the JAX package's flat layout, which both
+CLIs and the JAX package's ``utils/checkpoint.py:load_params`` read.
 """
 
 from __future__ import annotations
@@ -36,6 +40,14 @@ def _rcnn_lin_j2t(w: np.ndarray, c: int, ph: int, pw: int) -> np.ndarray:
     out = w.shape[1]
     return np.ascontiguousarray(
         w.reshape(ph, pw, c, out).transpose(3, 2, 0, 1).reshape(out, c * ph * pw)
+    )
+
+
+def _rcnn_lin_t2j(w: np.ndarray, c: int, ph: int, pw: int) -> np.ndarray:
+    """(out, C*ph*pw) -> (ph*pw*C, out), the inverse of _rcnn_lin_j2t."""
+    out = w.shape[0]
+    return np.ascontiguousarray(
+        w.reshape(out, c, ph, pw).transpose(2, 3, 1, 0).reshape(ph * pw * c, out)
     )
 
 
@@ -146,6 +158,26 @@ def params_to_state_dict(params: Any, cfg) -> Dict[str, torch.Tensor]:
         elif kind == "rcnn_lin":
             v = _rcnn_lin_j2t(v, c, ph, pw)
         out[tk] = torch.from_numpy(np.array(v))
+    return out
+
+
+def state_dict_to_params(state_dict: Dict[str, torch.Tensor], cfg) -> Dict[str, np.ndarray]:
+    """The port's state_dict -> JAX params as flat slash-joined keys
+    (float32 numpy, the ``params.npz`` layout); the inverse of
+    params_to_state_dict. Every key of the map must be present."""
+    c, ph, pw = cfg.out_fpn_chan, cfg.roi_pool_h, cfg.roi_pool_w
+    out: Dict[str, np.ndarray] = {}
+    for tk, (jk, kind) in key_map(cfg).items():
+        if tk not in state_dict:
+            raise KeyError(f"state_dict has no '{tk}' (JAX key '{jk}')")
+        v = state_dict[tk].detach().to("cpu", torch.float32).numpy()
+        if kind == "conv":
+            v = np.ascontiguousarray(v.transpose(2, 3, 1, 0))
+        elif kind == "lin":
+            v = np.ascontiguousarray(v.T)
+        elif kind == "rcnn_lin":
+            v = _rcnn_lin_t2j(v, c, ph, pw)
+        out[jk] = np.array(v)
     return out
 
 

@@ -1,4 +1,5 @@
-"""Anchor generation — static numpy on the host, computed once per shape.
+"""Anchor generation and the inside-image mask — static numpy on the host,
+computed once per shape.
 
 Port of ``birdsoundclassif_tpu/ops/anchors.py``: the int truncation and the
 scale-major / ratio-minor anchor ordering, which the RPN's channel layout
@@ -60,3 +61,14 @@ def full_anchor_grid(
     anchors = generate_base_anchors(base_size, ratios, scales)
     shifts = generate_anchor_shifts(width, height, anchor_stride)
     return (anchors[None, :, :] + shifts).reshape(-1, 4).astype(np.float32)
+
+
+def inside_image_mask(all_anchors: np.ndarray, img_width: int, img_height: int) -> np.ndarray:
+    """Boolean mask of anchors fully inside the image
+    (reference: AnchorTargetLayer.inds_inside, layers.py:124-128)."""
+    return (
+        (all_anchors[:, 0] >= 0)
+        & (all_anchors[:, 1] >= 0)
+        & (all_anchors[:, 2] < img_width)
+        & (all_anchors[:, 3] < img_height)
+    )

@@ -27,12 +27,40 @@ port's sources, and nothing of the JAX package. Phases, in order:
      --min_score 0 --batch 4. The kernel's launch count must rise by
      exactly 2*ceil(n_windows/4) + 1, and the .txt must parse into finite,
      in-range boxes. Then the same file again, warm: stage times (median
-     of 5) and one profiled run (device idle share, top kernels).
+     of 5), the detector with trainable and with frozen weights in turns
+     (inference_mode must keep autograd out), and one profiled run (device
+     idle share, top kernels).
   4. The NMS inputs of that run, recorded on the way, go through the
      kernel and the plain version again: equal masks, the kernel's time,
      the plain version's time and the bound, summed over the file.
   5. A small-input reference check: the tiny float32 config run on the CPU
      (plain NMS) and on the card (kernel) agree on the same wav.
+  6. Training: a dataset in the JAX ETL's layout (positive windows with
+     boxes around the tone bursts, negative and hard-negative windows of
+     noise; 375x1024 PNGs written by the port's encoder, which cycles all
+     five row filters) made with the port's front-end, then the port's
+     trainer (train/driver.py main) at the flagship NbmConfig() on cuda:
+     12 steps (step 10 a hard-negative step), one validation pass, then a
+     resume for 2 more steps. Checks: finite losses; trainable tensors and
+     the live batch norms' running statistics changed, frozen batch norms
+     untouched; the NMS launch count rose by exactly steps + validation
+     batches + 1; meta.json's step counts; the written params.npz served by
+     the port's CLI on the card. The proposal NMS inputs of a positive and
+     a negative step and of the validation pass go through the kernel and
+     the plain version again (equal masks, times, bound). Warm steps a
+     second and peak memory of positive and negative steps apart, the first
+     step's time, and one profiled positive step (idle share, top ops).
+  7. A small-input training reference check: one positive and one negative
+     train step of the tiny float32 config on the CPU and on the card from
+     the same weights, batch and target uniforms: every loss within
+     LOSS_TOL relative; the parameters after the two updates within
+     PARAM_MEAN_TOL lr of the CPU's on average (and each within 2 x 2.05
+     lr, which catches only gross divergence); Adam's first moments (the
+     gradients) within MU_TOL of each tensor's largest magnitude; proposal
+     keep masks equal wherever the two sides' boxes are equal. Then three
+     controls, the card step with a fault put in: TF32 on (read only), one
+     tensor's gradient zeroed (must exceed PARAM_MEAN_TOL), the same
+     tensor's gradient scaled by 0.9 (must exceed MU_TOL there).
 
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Any failed check exits non-zero before
@@ -66,6 +94,25 @@ OPS_PER_IOU = 16
 # order, and bins near the -100 dB floor carry the largest error (1.08e-4 of
 # the [0, 1] range on an H100). The STFT run with TF32 on must exceed it.
 SPEC_TOL = 3e-4
+# Phase 7, CPU vs card after one positive and one negative tiny-f32 step.
+# PARAM_MEAN_TOL: the mean parameter difference in units of lr (port vs
+# JAX on the CPU 1.5e-4, tests/test_torch_train.py; CPU vs H100 1.35e-3:
+# cuDNN's convolutions round the gradients otherwise than oneDNN's, and
+# Adam turns a rounding-noise gradient into a step of lr either way).
+# MU_TOL: Adam's first moments, the gradients, against the largest
+# magnitude of each tensor (port vs JAX on the CPU 1.25e-2, CPU vs H100
+# 1.7e-2, both in the deep backbone convs, whose gradients are sums that
+# cancel); first moments below MU_NOISE are the rounding noise of an
+# analytically zero gradient. The controls on an H100 read above both:
+# TF32 on 4.6e-2 lr and 0.23; one tensor of 0.77 % of the entries with
+# its gradient zeroed 1.97e-2 lr; scaled by 0.9, 9.9e-2 in its first
+# moment. LOSS_TOL: each loss of the two steps, relative to the CPU's
+# (H100 3.4e-7). It catches a wrong target or loss, not these controls:
+# TF32 moved the losses 3.0e-5, the zeroed gradient 3.7e-5.
+LOSS_TOL = 1e-4
+PARAM_MEAN_TOL = 5e-3
+MU_TOL = 5e-2
+MU_NOISE = 1e-7
 
 
 def fail(msg: str) -> None:
@@ -78,13 +125,15 @@ def check(cond, msg: str) -> None:
         fail(msg)
 
 
-def write_wav(path: str, seconds: float, seed: int, sr: int = 44_100) -> int:
-    """Noise plus 3 kHz and 6 kHz tone bursts, PCM16 mono; returns samples."""
+def write_wav(path: str, seconds: float, seed: int, sr: int = 44_100, tones: bool = True) -> int:
+    """Noise plus 3 kHz and 6 kHz tone bursts (or noise alone), PCM16 mono;
+    returns samples."""
     rng = np.random.default_rng(seed)
     t = np.arange(int(seconds * sr)) / sr
-    sig = 0.3 * np.sin(2 * np.pi * 3000 * t) * (np.sin(2 * np.pi * 0.7 * t) > 0.6)
-    sig += 0.2 * np.sin(2 * np.pi * 6000 * t) * (np.sin(2 * np.pi * 0.23 * t + 1) > 0.8)
-    sig += 0.02 * rng.standard_normal(t.size)
+    sig = 0.02 * rng.standard_normal(t.size)
+    if tones:
+        sig += 0.3 * np.sin(2 * np.pi * 3000 * t) * (np.sin(2 * np.pi * 0.7 * t) > 0.6)
+        sig += 0.2 * np.sin(2 * np.pi * 6000 * t) * (np.sin(2 * np.pi * 0.23 * t + 1) > 0.8)
     pcm = (np.clip(sig, -1, 1) * 32767).astype("<i2")
     with wave.open(path, "wb") as w:
         w.setnchannels(1)
@@ -169,6 +218,213 @@ def bound(boxes: np.ndarray, nv: np.ndarray, keep: np.ndarray, thr: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = pairs * OPS_PER_IOU / FP32_FLOP_PER_S * 1e3
     return t_bytes, t_ops, pairs
+
+
+def burst_runs(mask: np.ndarray):
+    """(start, end) of each run of True in a 1-d mask, end exclusive."""
+    d = np.diff(np.concatenate([[0], mask.astype(np.int8), [0]]))
+    return list(zip(np.nonzero(d == 1)[0], np.nonzero(d == -1)[0]))
+
+
+def write_training_dataset(root: str, spec: np.ndarray, cols: np.ndarray, noise_spec: np.ndarray,
+                           noise_cols: np.ndarray, hop_s: float, seed: int, png_mod,
+                           n_pos: int = 16, n_neg: int = 8, n_hard: int = 4) -> int:
+    """The JAX ETL's layout (data/etl.py:292-318): positive windows with
+    boxes around write_wav's tone bursts and annotations.csv, negative and
+    hard-negative windows of noise; windows quantised as round(img * 255).
+    Returns the numbers of positive windows and of boxes."""
+    rng = np.random.default_rng(seed)
+    species = rng.integers(1, 151, 2)  # one id for each tone
+    folder = "smoke__night__XC1"
+    pos_dir = os.path.join(root, "positive_files", folder)
+    os.makedirs(pos_dir)
+    rows, n_boxes = [], 0
+    for j in range(n_pos):
+        c = cols[j]
+        t = c * hop_s
+        img = spec[:, c]
+        boxes, ids = [], []
+        for tone, mask in enumerate((np.sin(2 * np.pi * 0.7 * t) > 0.6,
+                                     np.sin(2 * np.pi * 0.23 * t + 1) > 0.8)):
+            for x1, x2 in burst_runs(mask):
+                if x2 - x1 < 8:
+                    continue
+                row = int(np.argmax(img[:, x1:x2].mean(axis=1)))
+                boxes.append((int(x1), max(row - 6, 0), int(x2 - 1), min(row + 6, img.shape[0] - 1)))
+                ids.append(int(species[tone]))
+        if not boxes:
+            continue
+        png_mod.write_png(os.path.join(pos_dir, f"{folder}__{j:05d}.png"),
+                          np.round(img * 255).astype(np.uint8))
+        rows.append((j, boxes, ids))
+        n_boxes += len(boxes)
+    with open(os.path.join(pos_dir, "annotations.csv"), "w") as f:
+        f.write("index;coord;bird_id\n")
+        for j, boxes, ids in rows:
+            f.write(f"{j};{boxes};{ids}\n")
+    for sub, sl in (("negative_files", range(n_neg)), ("hard_neg", range(n_neg, n_neg + n_hard))):
+        d = os.path.join(root, sub, "smoke__noise__XC2")
+        os.makedirs(d)
+        for j in sl:
+            png_mod.write_png(os.path.join(d, f"smoke__noise__XC2__{j:05d}.png"),
+                              np.round(noise_spec[:, noise_cols[j]] * 255).astype(np.uint8))
+    return len(rows), n_boxes
+
+
+def training_reference_check(seed: int) -> dict:
+    """Phase 7: one positive and one negative step of the tiny float32
+    config on the CPU and on the card from the same weights, batch and
+    target uniforms, held to the limits above; then the same card step
+    three times with a fault put in on purpose (TF32 on; one tensor's
+    gradient zeroed; the same tensor's gradient scaled by 0.9), read with
+    the same measures, so the record shows where a wrong step lands
+    against the limits. Returns the readings."""
+    import torch
+
+    from birdsoundclassif_tpu_torch.config import NbmConfig
+    from birdsoundclassif_tpu_torch.models import rpn as rpn_mod
+    from birdsoundclassif_tpu_torch.models.detector import NbmModel
+    from birdsoundclassif_tpu_torch.train import loop as loop_mod
+
+    tiny = NbmConfig()
+    tiny.num_classes, tiny.out_fpn_chan, tiny.fpn_p_chan, tiny.depth_rcnn = 6, 16, 24, 1
+    tiny.img_height, tiny.img_width = 128, 256
+    tiny.pre_nms_topN, tiny.post_nms_topN, tiny.max_gt_boxes = 256, 64, 4
+    tiny.compute_dtype = "float32"
+    rng = np.random.default_rng(seed)
+    gt = np.zeros((2, 4, 4), np.float32)
+    gt[:, 0], gt[:, 1] = [30, 20, 120, 60], [140, 30, 200, 90]
+    host_batch = {"img": rng.random((2, 128, 256), dtype=np.float32),
+                  "neg_img": rng.random((2, 128, 256), dtype=np.float32), "gt_boxes": gt,
+                  "gt_valid": np.array([[1, 1, 0, 0]] * 2, bool),
+                  "gt_labels": np.array([[3, 5, 0, 0]] * 2, np.int32)}
+    gen = torch.Generator().manual_seed(seed)
+    real_prefix, real_f32 = rpn_mod.greedy_nms_prefix, loop_mod.full_f32
+    uniforms = {}
+
+    @contextlib.contextmanager
+    def tf32_on():  # stands in for the trainer's full_f32 in the TF32 control
+        prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+    def run_side(d, fault=None, target=None):
+        model = NbmModel(tiny).init_weights(torch.Generator().manual_seed(seed)).to(d)
+        trainer = loop_mod.Trainer(model, tiny)
+        if not uniforms:  # drawn once, on the host, for every side
+            uniforms["atl"] = torch.rand(trainer.atl.uniforms_shape(2), generator=gen)
+            uniforms["ptl"] = torch.rand((2, 3, tiny.post_nms_topN + 4), generator=gen)
+        names = {id(p): n for n, p in model.named_parameters()}
+        if fault in ("zero", "scale"):
+            factor = 0.0 if fault == "zero" else 0.9
+            dict(model.named_parameters())[target].register_hook(lambda g: g * factor)
+        nms_io = []
+
+        def recording_prefix(boxes, n_valid, thr):
+            keep = real_prefix(boxes, n_valid, thr)
+            nms_io.append((boxes.cpu(), n_valid.cpu(), keep.cpu()))
+            return keep
+
+        batch = {k: torch.from_numpy(v).to(d) for k, v in host_batch.items()}
+        rpn_mod.greedy_nms_prefix = recording_prefix
+        if fault == "tf32":
+            loop_mod.full_f32 = tf32_on
+        try:
+            pos_l = trainer.train_step(batch, False, uniforms={k: v.to(d) for k, v in
+                                                               uniforms.items()})
+            neg_l = trainer.train_step(batch, True)
+        finally:
+            rpn_mod.greedy_nms_prefix, loop_mod.full_f32 = real_prefix, real_f32
+        return dict(losses=[{k: float(v) for k, v in pos_l.items()},
+                            {k: float(v) for k, v in neg_l.items()}],
+                    sd={k: v.cpu() for k, v in model.state_dict().items()},
+                    mu={names[id(p)]: s["exp_avg"].cpu()
+                        for p, s in trainer.optimizer.state.items()},
+                    lr={names[id(p)]: g["lr"] for g in trainer.optimizer.param_groups
+                        for p in g["params"]}, nms=nms_io)
+
+    def measure(want_side, got_side):
+        """Losses: worst |got - want| / |want|. Parameters, in units of each
+        tensor's lr: worst entry and mean over all entries. Adam's first
+        moments (the gradients): each tensor's largest difference over its
+        largest magnitude."""
+        loss_rel, loss_key = 0.0, None
+        for i, (lw, lg) in enumerate(zip(want_side["losses"], got_side["losses"])):
+            check(lw.keys() == lg.keys(), f"reference step: loss names {sorted(lg)}")
+            for k, w in lw.items():
+                rel = abs(lg[k] - w) / max(abs(w), 1e-12)
+                check(math.isfinite(rel), f"reference step: loss {k} not finite")
+                if rel >= loss_rel:
+                    loss_rel, loss_key = rel, ("positive ", "negative ")[i] + k
+        worst, diff_sum, n_entries, n_apart, mu = 0.0, 0.0, 0, 0, {}
+        for k, lr in want_side["lr"].items():
+            dd = (got_side["sd"][k] - want_side["sd"][k]).abs()
+            worst = max(worst, float(dd.max()) / lr)
+            diff_sum += float(dd.sum()) / lr
+            n_entries += dd.numel()
+            n_apart += int((dd > 0.05 * lr).sum())
+            mu_w, mu_g = want_side["mu"][k], got_side["mu"][k]
+            mu[k] = float((mu_g - mu_w).abs().max()) / max(float(mu_w.abs().max()),
+                                                            MU_NOISE / MU_TOL)
+        mu_key = max(mu, key=mu.get)
+        return dict(loss_rel=loss_rel, loss_key=loss_key, param_worst_lr=worst,
+                    param_mean_lr=diff_sum / n_entries, entries=n_entries,
+                    entries_apart=n_apart, mu_worst=mu[mu_key], mu_key=mu_key, mu=mu)
+
+    side = {"cpu": run_side("cpu"), "cuda": run_side("cuda")}
+    sound = measure(side["cpu"], side["cuda"])
+    # the control tensor: the largest trainable one with at most 1 % of the
+    # entries, so that zeroing its gradient alone is a small fault
+    sizes = {k: side["cpu"]["sd"][k].numel() for k in side["cpu"]["lr"]}
+    target = max((k for k in sizes if sizes[k] <= 0.01 * sound["entries"]), key=sizes.get)
+    controls = {f: measure(side["cpu"], run_side("cuda", f, target))
+                for f in ("tf32", "zero", "scale")}
+    for name, r in [("sound", sound)] + list(controls.items()):
+        print(f"training reference {name}: losses within {r['loss_rel']:.3e} relative at worst "
+              f"({r['loss_key']}); parameters within {r['param_worst_lr']:.3f} lr at worst, "
+              f"{r['param_mean_lr']:.3e} lr on average, {r['entries_apart']} of {r['entries']} "
+              f"entries more than 0.05 lr apart; first moments within {r['mu_worst']:.3e} of "
+              f"their tensor's largest magnitude at worst ({r['mu_key']}), "
+              f"{r['mu'][target]:.3e} in {target}", flush=True)
+
+    check(sound["loss_rel"] <= LOSS_TOL, f"reference step: loss {sound['loss_key']} differs by "
+                                         f"{sound['loss_rel']:.3g} relative > {LOSS_TOL}")
+    # Two Adam steps move an entry by at most about 2 x 2.05 lr, so this
+    # limit catches only gross divergence (a wrong rate, a runaway update).
+    check(sound["param_worst_lr"] <= 2 * 2.05 + 1e-6,
+          f"reference step: a parameter {sound['param_worst_lr']:.3g} lr apart > 2 x 2.05 lr")
+    check(sound["param_mean_lr"] <= PARAM_MEAN_TOL,
+          f"reference step: mean parameter difference {sound['param_mean_lr']:.3g} lr > "
+          f"{PARAM_MEAN_TOL} lr")
+    check(sound["mu_worst"] <= MU_TOL, f"reference step: first moment of {sound['mu_key']} "
+                                       f"differs by {sound['mu_worst']:.3g} of its largest "
+                                       f"magnitude > {MU_TOL}")
+    # the limits must be able to fail: the two gradient faults exceed them
+    check(controls["zero"]["param_mean_lr"] > PARAM_MEAN_TOL,
+          f"control: {target}'s gradient zeroed moves the parameters by only "
+          f"{controls['zero']['param_mean_lr']:.3g} lr on average <= {PARAM_MEAN_TOL}")
+    check(controls["scale"]["mu"][target] > MU_TOL,
+          f"control: {target}'s gradient scaled by 0.9 moves its first moment by only "
+          f"{controls['scale']['mu'][target]:.3g} <= {MU_TOL}")
+    n_rows = 0
+    for (bc, nc, kc), (bg, ng, kg) in zip(side["cpu"]["nms"], side["cuda"]["nms"]):
+        for r in range(bc.shape[0]):
+            if torch.equal(bc[r], bg[r]) and int(nc[r]) == int(ng[r]):
+                check(torch.equal(kc[r], kg[r]), "reference step: keep masks differ on equal boxes")
+                n_rows += 1
+    check(len(side["cpu"]["nms"]) == 2 and n_rows > 0, "reference step: no NMS row to compare")
+    print(f"training reference check (tiny f32 config, one positive + one negative step): cpu "
+          f"and cuda losses within {sound['loss_rel']:.3e} relative (limit {LOSS_TOL}), keep "
+          f"masks equal on {n_rows} of {2 * len(side['cpu']['nms'])} rows with equal boxes",
+          flush=True)
+    drop = ("mu", "entries")
+    return {"control_tensor": target, "control_tensor_entries": sizes[target],
+            "nms_rows_compared": n_rows,
+            **{name: {k: v for k, v in r.items() if k not in drop}
+               for name, r in [("sound", sound)] + list(controls.items())}}
 
 
 def main() -> int:
@@ -396,6 +652,16 @@ def main() -> int:
         print(f"warm file (median of 5): frontend {stages[0] * 1e3:.2f} ms, detector+merge "
               f"{stages[1] * 1e3:.2f} ms, species dict {stages[2] * 1e3:.2f} ms; "
               f"{audio_s / stages.sum():.1f} s of audio per wall second", flush=True)
+        # the weights are trainable parameters, and inference_mode must keep
+        # autograd from recording: the same file with them frozen, in turns
+        detector_s = {True: [], False: []}
+        for trainable in (True, False, False, True, True, False):
+            for p in model.parameters():
+                p.requires_grad_(trainable)
+            detector_s[trainable].append(one_file()[1])
+        print(f"warm detector+merge, median of 3 in turns: trainable weights "
+              f"{np.median(detector_s[True]) * 1e3:.2f} ms, frozen weights "
+              f"{np.median(detector_s[False]) * 1e3:.2f} ms", flush=True)
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -501,6 +767,229 @@ def main() -> int:
               f"max abs diff {spec_err:.3g} (limit {SPEC_TOL:g}; TF32 control "
               f"{tf32_err:.3g})", flush=True)
 
+    # ---- 6. training at the flagship config through the port's driver ----
+    from birdsoundclassif_tpu_torch.data import png as png_mod
+    from birdsoundclassif_tpu_torch.models import weights as weights_mod
+    from birdsoundclassif_tpu_torch.models import rpn as rpn_mod
+    from birdsoundclassif_tpu_torch.train import driver as driver_mod
+    from birdsoundclassif_tpu_torch.train import loop as loop_mod
+    from torch.profiler import ProfilerActivity, profile
+
+    steps_first, steps_resume, val_prop, n_pos = 12, 2, 0.25, 16
+    step_log = []           # (step, negative, seconds, peak bytes, losses)
+    eval_log = []
+    train_recorded = {}     # use -> (boxes, n_valid, thresh)
+    phase = {"use": None}
+    prof_out = {}
+    real_train_step, real_eval_step = loop_mod.Trainer.train_step, loop_mod.Trainer.eval_step
+
+    def timed_train_step(self, batch, negative_sample=False, generator=None, uniforms=None):
+        step = self.steps
+        phase["use"] = ("train-negative" if negative_sample else "train-positive") \
+            if step in (1, 10) else None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if step == 5:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                out = real_train_step(self, batch, negative_sample, generator, uniforms)
+                torch.cuda.synchronize()
+            prof_out["wall"] = time.perf_counter() - t0
+            prof_out["prof"] = prof
+        else:
+            out = real_train_step(self, batch, negative_sample, generator, uniforms)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        step_log.append((step, bool(negative_sample), dt, torch.cuda.max_memory_allocated(),
+                         {k: float(v) for k, v in out.items()}))
+        phase["use"] = None
+        return out
+
+    def logged_eval_step(self, batch, negative_sample=False, generator=None):
+        phase["use"] = "validation" if not eval_log else None
+        out = real_eval_step(self, batch, negative_sample, generator)
+        eval_log.append((bool(negative_sample), {k: float(v) for k, v in out.items()}))
+        phase["use"] = None
+        return out
+
+    def recording_train_wrapper(boxes, n_valid, iou_thresh):
+        if phase["use"] is not None:
+            train_recorded[phase["use"]] = (boxes.clone(), n_valid.clone(), float(iou_thresh))
+        return real_wrapper(boxes, n_valid, iou_thresh)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = os.path.join(tmp, "dataset")
+        fe_cfg = cfg.frontend
+        hop_s = fe_cfg.hop_length / fe_cfg.sample_rate
+        wav_pos, wav_neg = os.path.join(tmp, "pos.wav"), os.path.join(tmp, "neg.wav")
+        write_wav(wav_pos, 120.0, args.seed)
+        write_wav(wav_neg, 40.0, args.seed + 2, tones=False)
+        fe_gpu = SpectrogramFrontend(fe_cfg, device=dev)
+        pos = fe_gpu.process(load_audio_raw(wav_pos, fe_cfg.sample_rate))
+        neg = fe_gpu.process(load_audio_raw(wav_neg, fe_cfg.sample_rate))
+        n_pos, n_boxes = write_training_dataset(data, pos.spec.cpu().numpy(), pos.window_cols,
+                                         neg.spec.cpu().numpy(), neg.window_cols, hop_s,
+                                         args.seed, png_mod, n_pos=n_pos)
+        check(n_pos >= 12, f"only {n_pos} positive windows hold a burst")
+        n_files = sum(len(fs) for _, _, fs in os.walk(data))
+        print(f"training dataset: {n_files} files ({n_pos} positive windows, {n_boxes} boxes, "
+              f"8 negative, 4 hard negative; 375x1024 PNG, all five row filters) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        save_root = os.path.join(tmp, "models")
+        flags = ["--data_path", data, "--save_dir", save_root, "--model_name", "smoke",
+                 "--validation_prop", str(val_prop), "--eval_every", str(steps_first),
+                 "--seed", str(args.seed), "--device", "cuda"]
+        mdir = os.path.join(save_root, "smoke")
+        init_sd = NbmModel(cfg).init_weights(torch.Generator().manual_seed(args.seed)).state_dict()
+        val_batches = int(val_prop * n_pos) // (2 * cfg.batch_size)
+
+        loop_mod.Trainer.train_step = timed_train_step
+        loop_mod.Trainer.eval_step = logged_eval_step
+        nms_mod.nms_in_order = recording_train_wrapper
+        try:
+            torch.cuda.synchronize()
+            kern.launches = 0
+            t0 = time.perf_counter()
+            rc = driver_mod.main(flags + ["--max_steps", str(steps_first)])
+            torch.cuda.synchronize()
+            train_wall = time.perf_counter() - t0
+            train_launches = kern.launches
+            n_first = len(step_log)
+            kern.launches = 0
+            t0 = time.perf_counter()
+            rc_resume = driver_mod.main(flags + ["--max_steps", str(steps_first + steps_resume)])
+            torch.cuda.synchronize()
+            resume_wall = time.perf_counter() - t0
+            resume_launches = kern.launches
+        finally:
+            loop_mod.Trainer.train_step, loop_mod.Trainer.eval_step = real_train_step, \
+                real_eval_step
+            nms_mod.nms_in_order = real_wrapper
+        check(rc == 0 and rc_resume == 0, f"driver.main returned {rc} / {rc_resume}")
+        want_launches = steps_first + val_batches + 1
+        check(val_batches >= 1, "the smoke dataset gives no validation batch")
+        check(train_launches == want_launches,
+              f"training launched nms_in_order {train_launches} times, want {steps_first} steps "
+              f"+ {val_batches} validation batches + 1 = {want_launches}")
+        check(resume_launches == steps_resume,
+              f"the resume launched nms_in_order {resume_launches} times, want {steps_resume}")
+        check(n_first == steps_first and len(step_log) == steps_first + steps_resume,
+              f"{len(step_log)} train steps ran, want {steps_first} + {steps_resume}")
+        check([st for st, neg, *_ in step_log if neg] == [10], "step 10 alone must be negative")
+        check(len(eval_log) == val_batches + 1 and eval_log[-1][0], "validation pass incomplete")
+        for st, neg, _, _, losses in step_log:
+            check(all(math.isfinite(v) for v in losses.values()), f"step {st}: {losses}")
+        for _, losses in eval_log:
+            check(all(math.isfinite(v) for v in losses.values()), f"validation: {losses}")
+        with open(os.path.join(mdir, "ckpt_last", "meta.json")) as f:
+            meta = json.load(f)
+        check(meta["steps"] == steps_first + steps_resume, f"meta.json after the resume: {meta}")
+        with open(os.path.join(mdir, "metrics.jsonl")) as f:
+            tags = {json.loads(line)["tag"] for line in f}
+        check("Val_Loss/sec_class_loss" in tags and "Training_Loss/first_class_loss" in tags,
+              f"metrics.jsonl lacks scalars: {sorted(tags)[:5]}")
+        # the parameters as written: trained, frozen norms untouched
+        trained = weights_mod.load_params(os.path.join(mdir, "ckpt_last"), cfg)
+        model_keys = NbmModel(cfg).state_dict().keys()
+        check(sorted(trained) == sorted(model_keys), "params.npz does not hold the whole model")
+        unchanged_w, n_w, n_live, n_frozen = [], 0, 0, 0
+        for k, v in trained.items():
+            same = torch.equal(v, init_sd[k])
+            if ".bn" in k or "downsample.1" in k:  # frozen batch norms of the backbone
+                check(same, f"frozen batch norm tensor {k} changed")
+                n_frozen += 1
+            elif ".norm.running_" in k:
+                check(not same, f"live batch norm statistic {k} did not change")
+                n_live += 1
+            elif k.endswith(".weight"):
+                n_w += 1
+                if same:
+                    unchanged_w.append(k)
+        # a weight whose loss term had no sample in these few steps (a box
+        # head of a level without a positive anchor) keeps its value: Adam
+        # moves it by 0 and the decay by lr * wd = 1e-8 rounds away
+        check(len(unchanged_w) <= n_w // 10, f"weights not trained: {unchanged_w[:8]}")
+        print(f"training checks: {n_w - len(unchanged_w)} of {n_w} weight tensors trained "
+              f"(unchanged: {unchanged_w}), {n_live} live batch-norm "
+              f"statistics updated, {n_frozen} frozen batch-norm tensors untouched; meta.json "
+              f"steps {meta['steps']}; nms_in_order launches {train_launches} == "
+              f"{steps_first} + {val_batches} + 1, resume {resume_launches}", flush=True)
+
+        # the trainer's checkpoint in the port's CLI, on the card
+        audio = os.path.join(tmp, "audio")
+        os.makedirs(audio)
+        write_wav(os.path.join(audio, "short.wav"), 6.0, args.seed + 3)
+        rc = cli.main(["--ckpt", os.path.join(mdir, "ckpt_last"), "--audio_dir", audio,
+                       "--min_score", "0.0", "--device", "cuda"])
+        check(rc == 0, f"the CLI on the trained checkpoint returned {rc}")
+        with open(os.path.join(audio, "short.txt")) as f:
+            served = ast.literal_eval(f.read())
+        check(isinstance(served, dict), "the CLI wrote no detection dict")
+
+    pos_t = [dt for st, neg, dt, _, _ in step_log[2:] if not neg]
+    neg_t = [dt for st, neg, dt, _, _ in step_log if neg]
+    pos_mem = max(m for _, neg, _, m, _ in step_log if not neg)
+    neg_mem = max(m for _, neg, _, m, _ in step_log if neg)
+    prof = prof_out["prof"]
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    training = {
+        "config": "NbmConfig() flagship: resnet50 frozen BN, bf16, rpn_head_f32, batch 2, "
+                  "pre/post NMS 3000/1000",
+        "steps": steps_first, "resume_steps": steps_resume, "validation_batches": val_batches,
+        "first_step_s": step_log[0][2],
+        "positive_step_s_median": float(np.median(pos_t)),
+        "positive_steps_per_s": 1.0 / float(np.median(pos_t)),
+        "negative_step_s": float(np.median(neg_t)),
+        "negative_steps_per_s": 1.0 / float(np.median(neg_t)),
+        "positive_peak_bytes": int(pos_mem), "negative_peak_bytes": int(neg_mem),
+        "profiled_step_wall_s": prof_out["wall"], "profiled_step_device_s": busy_us / 1e6,
+        "profiled_step_idle_share": 1 - busy_us / 1e6 / prof_out["wall"],
+        # the profiler slows the host: the same device time over the
+        # unprofiled median step
+        "idle_share_of_median_step": 1 - busy_us / 1e6 / float(np.median(pos_t)),
+        "first_run_wall_s": train_wall, "resume_wall_s": resume_wall,
+        "nms_launches": train_launches, "resume_nms_launches": resume_launches,
+        "losses_step0": step_log[0][4], "losses_step10": step_log[10][4],
+    }
+    print(f"training: first step {training['first_step_s']:.3f} s (first call of every op "
+          f"included); warm positive step {training['positive_step_s_median'] * 1e3:.1f} ms "
+          f"({training['positive_steps_per_s']:.2f} steps/s, median of {len(pos_t)}), negative "
+          f"step {training['negative_step_s'] * 1e3:.1f} ms; peak memory positive "
+          f"{pos_mem / 2**30:.2f} GiB, negative {neg_mem / 2**30:.2f} GiB; profiled positive "
+          f"step wall {prof_out['wall'] * 1e3:.1f} ms, device kernels {busy_us / 1e3:.1f} ms, "
+          f"idle share {training['profiled_step_idle_share']:.3f} "
+          f"({training['idle_share_of_median_step']:.3f} of the unprofiled median step)",
+          flush=True)
+    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=12,
+                                    max_name_column_width=60), flush=True)
+
+    # the training path's own NMS inputs: equality, times, bound
+    step_uses = {}
+    check(sorted(train_recorded) == ["train-negative", "train-positive", "validation"],
+          f"recorded training NMS inputs: {sorted(train_recorded)}")
+    for use, (boxes, nv, thr) in sorted(train_recorded.items()):
+        b, n, _ = boxes.shape
+        max_err = max(max_err, compare(boxes, nv, thr, f"recorded {use}"))
+        k_ms = time_ms(lambda: run_kernel(boxes, nv, thr), 10)
+        d_ms = device_ms(lambda: run_kernel(boxes, nv, thr))
+        p_ms = time_ms(lambda: run_plain(boxes, nv, thr), 1)
+        keep = run_kernel(boxes, nv, thr).cpu().numpy()
+        t_bytes, t_ops, pairs = bound(boxes.cpu().numpy(), nv.cpu().numpy(), keep, thr)
+        step_uses[use] = dict(launches_per_step=1, shape=[b, n], thresh=thr,
+                              n_valid=nv.cpu().tolist(), kept=int(keep.sum()), ms=k_ms,
+                              device_ms=d_ms, plain_ms=p_ms, bound_ms=max(t_bytes, t_ops),
+                              bound_by="bytes" if t_bytes >= t_ops else "operations", ious=pairs)
+        print(f"recorded {use}: B={b} N={n} thresh {thr} n_valid {nv.cpu().tolist()} equal, kept "
+              f"{int(keep.sum())}; kernel {k_ms:.4f} ms a call, {d_ms:.5f} ms on the device, "
+              f"plain {p_ms:.1f} ms, bound {max(t_bytes, t_ops):.6f} ms ({pairs} IoUs)", flush=True)
+    print(json.dumps({"training": training}), flush=True)
+
+    # ---- 7. small-input training reference: CPU vs card, one pos + one neg step ----
+    reference = training_reference_check(args.seed)
+    print(json.dumps({"training_reference": reference}), flush=True)
+
     bad = [m for m in sys.modules
            if m == "jax" or m.startswith("jax.") or m == "birdsoundclassif_tpu"
            or m.startswith("birdsoundclassif_tpu.")]
@@ -522,6 +1011,9 @@ def main() -> int:
         "training_shape_ms": synthetic["training-proposal"]["ms"],
         "training_shape_device_ms": synthetic["training-proposal"]["device_ms"],
         "per_file_uses": uses,
+        "training_launches": train_launches,
+        "training_resume_launches": resume_launches,
+        "per_step_uses": step_uses,
         "synthetic": synthetic,
         "card": card,
     }]

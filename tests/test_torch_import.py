@@ -1,7 +1,8 @@
 """PyTorch port: import isolation and the no-GPU behaviour of its CLI.
 
 The port imports torch, numpy and scipy, never jax and nothing of the JAX
-package. tests/conftest.py already imports jax into this process, so the
+package, and its trainer needs no pandas, imageio or Pillow (the card's
+machine has none of them). tests/conftest.py already imports jax into this process, so the
 import check runs in a fresh interpreter.
 """
 
@@ -22,8 +23,11 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import birdsoundclassif_tpu_torch\n"
         "import birdsoundclassif_tpu_torch.infer.cli\n"
         "import birdsoundclassif_tpu_torch.infer.pipeline\n"
+        "import birdsoundclassif_tpu_torch.train.driver\n"
+        "import birdsoundclassif_tpu_torch.data.image_dataset\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'birdsoundclassif_tpu' or m.startswith('birdsoundclassif_tpu.')]\n"
+        "       or m == 'birdsoundclassif_tpu' or m.startswith('birdsoundclassif_tpu.')\n"
+        "       or m.split('.')[0] in ('pandas', 'imageio', 'PIL')]\n"
         "print(repr(bad))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
