@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 from functools import lru_cache
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,6 +98,9 @@ class FrontendResult:
     spec: torch.Tensor         # (h_pix, total_frames) float32 in [0, 1], on the device
     window_cols: np.ndarray    # (n_windows, w_pix) int32
     total_frames: int          # == reference File_Processor.spectrogram_length
+    # recorded after the spectrogram's work when it was enqueued on a side
+    # stream (infer/pipeline.py:FilePrefetcher); None on the current stream
+    ready: Optional[torch.cuda.Event] = None
 
     @property
     def n_windows(self) -> int:
@@ -124,8 +127,9 @@ class SpectrogramFrontend:
 
     def process(self, samples) -> FrontendResult:
         """Full front-end for one file's PCM samples (44.1 kHz mono, int16
-        or float32 array). One host-to-device copy per STFT chunk, no
-        device-to-host sync."""
+        or float32 array), on the current stream. One host-to-device copy
+        per STFT chunk, from pinned memory on the card so that it waits for
+        nothing, and no device-to-host sync."""
         cfg = self.cfg
         hop, n_fft = cfg.hop_length, cfg.win_length
         pad = n_fft // 2
@@ -144,7 +148,10 @@ class SpectrogramFrontend:
         with full_f32():
             for s, e in self._chunk_spans(samples.size):
                 n_frames = 1 + (e - s) // hop
-                x = torch.from_numpy(np.array(samples[s:e])).to(dev).float()
+                x = torch.from_numpy(np.array(samples[s:e]))
+                if dev.type == "cuda":
+                    x = x.pin_memory()
+                x = x.to(dev, non_blocking=True).float()
                 # centered zero padding (librosa center=True, pad_mode='constant')
                 padded = torch.nn.functional.pad(x * inv_scale, (pad, pad))
                 frames = padded.unfold(0, n_fft, hop)[:n_frames]

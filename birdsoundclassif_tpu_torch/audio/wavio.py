@@ -1,18 +1,25 @@
-"""Host-side audio decode: dependency-free RIFF/WAV parser + resampling.
+"""Host-side audio decode: dependency-free RIFF/WAV parser, mp3 and
+ffmpeg decode, resampling.
 
-Port of the wav branch of ``birdsoundclassif_tpu/audio/wavio.py``, which
-replaces the reference's librosa.load + ffmpeg pair (reference:
-prepare_dataset.py:160-184). PCM 8/16/24/32 and IEEE float are parsed in
-Python, channels are averaged to mono as librosa.to_mono does, and off-rate
-files are resampled with scipy.signal.resample_poly. Mono PCM16 at the
-target rate stays int16 and is scaled by 1/32768 in the front-end. The
-native C++ reader, mp3 and ffmpeg decode are not ported yet.
+Port of ``birdsoundclassif_tpu/audio/wavio.py``, which replaces the
+reference's librosa.load + ffmpeg pair (reference:
+prepare_dataset.py:160-184). PCM 8/16/24/32 and IEEE float wavs are parsed
+in Python, ``.mp3`` is decoded in-process by libmpg123 (audio/mp3.py) or
+else by an ffmpeg subprocess, every other extension by ffmpeg. Channels
+are averaged to mono as librosa.to_mono does, and off-rate files are
+resampled with scipy.signal.resample_poly. Mono PCM16 at the target rate
+stays int16 and is scaled by 1/32768 in the front-end. The JAX package's
+optional C++ wav reader (native/wav.py) is not ported.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import shutil
 import struct
+import subprocess
+import tempfile
 from typing import Optional, Tuple
 
 import numpy as np
@@ -97,6 +104,24 @@ def resample(x: np.ndarray, sr: int, target_sr: int) -> np.ndarray:
     return resample_poly(x, target_sr // g, sr // g).astype(np.float32)
 
 
+def _decode_via_ffmpeg(path: str, target_sr: int) -> Tuple[np.ndarray, int]:
+    """(mono float32, target_sr) through ffmpeg to a temporary PCM16 wav."""
+    ffmpeg = shutil.which("ffmpeg")
+    if ffmpeg is None:
+        raise AudioDecodeError(f"cannot decode {path}: ffmpeg not available")
+    with tempfile.NamedTemporaryFile(suffix=".wav", delete=False) as tmp:
+        tmp_path = tmp.name
+    try:
+        subprocess.run(
+            [ffmpeg, "-y", "-i", path, "-async", "1", "-ac", "1", "-vn",
+             "-acodec", "pcm_s16le", "-ar", str(target_sr), tmp_path],
+            check=True, capture_output=True,
+        )
+        return read_wav(tmp_path)
+    finally:
+        os.unlink(tmp_path)
+
+
 def read_wav_int16(path: str) -> Optional[Tuple[np.ndarray, int]]:
     """(int16 mono, sr) when the file is mono PCM16, else None."""
     with open(path, "rb") as f:
@@ -113,18 +138,29 @@ def read_wav_int16(path: str) -> Optional[Tuple[np.ndarray, int]]:
 
 
 def load_audio_raw(path: str, target_sr: int = 44_100) -> Optional[np.ndarray]:
-    """Mono samples at target_sr: int16 for mono PCM16 at the target rate,
-    else float32. Returns None when the file cannot be decoded (the
-    reference skips unreadable files: prepare_dataset.py:160-165)."""
-    if not path.lower().endswith(".wav"):
-        print(f"File loading failed: {path}: only .wav is decoded by the PyTorch port")
-        return None
+    """Mono samples at target_sr: int16 for mono PCM16 wav at the target
+    rate, else float32. ``.wav`` is parsed here; ``.mp3`` goes to libmpg123
+    first and to ffmpeg when the library is missing; anything else to
+    ffmpeg. Returns None when the file cannot be decoded (the reference
+    prints and skips unreadable files: prepare_dataset.py:160-165)."""
     try:
-        i16 = read_wav_int16(path)
-        if i16 is not None and i16[1] == target_sr:
-            return i16[0]
-        x, sr = read_wav(path)
+        if path.lower().endswith(".wav"):
+            i16 = read_wav_int16(path)
+            if i16 is not None and i16[1] == target_sr:
+                return i16[0]
+            x, sr = read_wav(path)
+        elif path.lower().endswith(".mp3"):
+            from .mp3 import decode_mp3, mpg123_available
+
+            if mpg123_available():
+                stereo, sr = decode_mp3(path)
+                x = stereo.mean(axis=1) if stereo.shape[1] > 1 else stereo[:, 0]
+            else:
+                x, sr = _decode_via_ffmpeg(path, target_sr)
+        else:
+            x, sr = _decode_via_ffmpeg(path, target_sr)
         return resample(x, sr, target_sr)
-    except (OSError, ValueError, struct.error, AudioDecodeError) as e:
+    except (OSError, ValueError, ArithmeticError, IndexError, struct.error, RuntimeError,
+            subprocess.SubprocessError) as e:
         print(f"File loading failed: {path}: {e}")
         return None

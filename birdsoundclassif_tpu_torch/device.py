@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
@@ -19,6 +20,10 @@ def resolve_device(device: torch.device | str) -> torch.device:
     return dev
 
 
+_F32_LOCK = threading.Lock()
+_F32_STATE = {"depth": 0, "saved": None}
+
+
 @contextlib.contextmanager
 def full_f32():
     """Run float32 matrix products and convolutions in full float32.
@@ -27,11 +32,26 @@ def full_f32():
     digits). The float32 parts of the model (the float32 RPN head, RoI
     pooling, the RCNN head), the whole model under compute_dtype="float32",
     and the STFT are meant as float32, as in the JAX package, so both TF32
-    switches are off inside this block and restored on exit."""
-    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    switches are off inside this block.
+
+    The switches are process-wide, and the streamed loop runs the STFT on
+    a prefetch thread while the main thread runs the detector. So the
+    blocks of all threads share one count under a lock: the first block
+    in saves the switches and turns TF32 off, the last block out restores
+    them. A thread's exit cannot turn TF32 back on under another thread's
+    block, nor leave it off for good."""
+    with _F32_LOCK:
+        if _F32_STATE["depth"] == 0:
+            _F32_STATE["saved"] = (torch.backends.cuda.matmul.allow_tf32,
+                                   torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _F32_STATE["depth"] += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+        with _F32_LOCK:
+            _F32_STATE["depth"] -= 1
+            if _F32_STATE["depth"] == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _F32_STATE["saved"]

@@ -10,7 +10,7 @@ Usage:
       [--device cuda]
 
 It runs on the card unless ``--device cpu`` is given, and raises when no
-card is present. Only .wav files are read; mp3 decode is not ported yet.
+card is present. ``.mp3`` files are read beside ``.wav`` (audio/wavio.py).
 """
 
 from __future__ import annotations
@@ -48,7 +48,9 @@ def main(argv=None) -> int:
 
     model, cfg = load_model(args.model_dirp, device)
     frontend = SpectrogramFrontend(cfg.frontend, device=device)
-    for wav_path in sorted(glob.glob(args.audio_dirp + "/*.wav")):
+    audio_paths = sorted(glob.glob(args.audio_dirp + "/*.wav")
+                         + glob.glob(args.audio_dirp + "/*.mp3"))
+    for wav_path in audio_paths:
         output = run_detection(
             model, cfg, wav_path, bird_dicts_path=bird_dict,
             min_score=args.min_score, bs=args.bs, frontend=frontend,

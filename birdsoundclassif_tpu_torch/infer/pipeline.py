@@ -1,4 +1,4 @@
-"""End-to-end inference: wav file -> species-labelled boxes.
+"""End-to-end inference: wav or mp3 file -> species-labelled boxes.
 
 Port of ``birdsoundclassif_tpu/infer/pipeline.py`` (reference:
 run_detection.py:28-122,163-249). The host decodes the audio and computes
@@ -8,19 +8,28 @@ model's device; one packed array comes back per file.
 
 The JAX package pads each file's windows to a power-of-two count so XLA
 compiles a bounded number of programs. Eager PyTorch compiles nothing, so
-the port runs only the batches that hold real windows. The last batch is
-still filled to `bs` with copies of spectrogram column 0, as the JAX
-package fills it, because the batch-min top-N quirk couples the windows of
-one batch; whole padding batches are masked out of the merge there and are
-simply not run here, which leaves the merge result unchanged.
+the whole-file path runs only the batches that hold real windows. The last
+batch is still filled to `bs` with copies of spectrogram column 0, as the
+JAX package fills it, because the batch-min top-N quirk couples the
+windows of one batch; whole padding batches are masked out of the merge
+there and are simply not run here, which leaves the merge result
+unchanged. The per-window route (``detect_from_frontend(whole_file=
+False)``) pads the detections to the JAX package's bucket as it does.
+
+``stream_detections`` is the loop of the serving entry points
+(infer/serve.py, infer/sweep.py): file i+1's decode, host-to-device copy
+and STFT run on a prefetch thread and, on the card, a side stream, while
+file i's detector runs on the main stream and file i-1's packed rows come
+back to pinned host memory behind it.
 """
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import json
 import os
 import warnings
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +39,8 @@ from ..audio.wavio import load_audio_raw
 from ..config import NbmConfig
 from ..device import resolve_device
 from ..models.detector import NbmModel
+from ..models.optimize import fold_inference
+from ..models.rcnn import Detections
 from ..models.weights import load_into, load_params
 from ..ops.nms import greedy_nms_prefix
 
@@ -50,16 +61,18 @@ def load_bird_dict(path: Optional[str] = None) -> Tuple[Dict[str, int], Dict[int
 
 
 def load_model(model_dir: str, device: torch.device | str = "cuda") -> Tuple[NbmModel, NbmConfig]:
-    """(model in eval mode on `device`, cfg) from a checkpoint directory
-    holding `args` (JSON config, reference-compatible) and params
+    """(folded model in eval mode on `device`, cfg) from a checkpoint
+    directory holding `args` (JSON config, reference-compatible) and params
     (params.npz or a reference model_chkpt.pt) (reference: load_model,
-    run_detection.py:87-122). The frozen BNs and init_conv run unfolded:
-    the same function as the JAX package's folded model."""
+    run_detection.py:87-122). As in the JAX package, the model is the
+    inference fold of the checkpoint (models/optimize.py:fold_inference,
+    computed in float32 on the CPU): the frozen BNs folded into their
+    convs and the init_conv into the stem. Inference only."""
     dev = resolve_device(device)
     cfg = NbmConfig.load(os.path.join(model_dir, "args"))
     model = NbmModel(cfg)
     load_into(model, load_params(model_dir, cfg))
-    return model.to(dev).eval(), cfg
+    return fold_inference(model.eval(), cfg).to(dev), cfg
 
 
 def _merge_core(
@@ -136,29 +149,65 @@ def _merge_core(
     return torch.cat([rows, meta], dim=0)
 
 
+def _run_windows(model: NbmModel, spec: torch.Tensor, window_cols: np.ndarray, bs: int,
+                 min_score: float, nms_thresh: float) -> List[Detections]:
+    """The detector over the windows of `spec` in batches of `bs`, the last
+    batch filled with copies of spectrogram column 0 (inference mode)."""
+    n = window_cols.shape[0]
+    n_pad = -(-n // bs) * bs
+    cols = np.zeros((n_pad, window_cols.shape[1]), np.int64)
+    cols[:n] = window_cols
+    cols_t = torch.from_numpy(cols)
+    if spec.device.type == "cuda":
+        cols_t = cols_t.pin_memory()  # so that the copy waits for nothing
+    cols_t = cols_t.to(spec.device, non_blocking=True)
+    return [model(spec[:, cols_t[i:i + bs]].permute(1, 0, 2), nms_thresh, min_score)  # (bs, h, w)
+            for i in range(0, n_pad, bs)]
+
+
 def detect_file(model: NbmModel, cfg, fe_res: FrontendResult, min_score: float,
                 bs: int) -> torch.Tensor:
     """Window gather -> detector per batch of `bs` windows -> merge, on the
-    spectrogram's device. Returns the packed merge rows (see _merge_core)
-    on that device, without waiting for them."""
-    spec = fe_res.spec
-    n = fe_res.n_windows
-    n_pad = -(-n // bs) * bs
-    cols = np.zeros((n_pad, fe_res.window_cols.shape[1]), np.int64)
-    cols[:n] = fe_res.window_cols
-    cols_t = torch.from_numpy(cols).to(spec.device)
-    outs = []
+    spectrogram's device and the current stream. Returns the packed merge
+    rows (see _merge_core) on that device, without waiting for them."""
     with torch.inference_mode():
-        for i in range(0, n_pad, bs):
-            wins = spec[:, cols_t[i:i + bs]].permute(1, 0, 2)  # (bs, h, w)
-            outs.append(model(wins, NMS_THRESH, min_score))
+        outs = _run_windows(model, fe_res.spec, fe_res.window_cols, bs, min_score, NMS_THRESH)
         fe = cfg.frontend
         return _merge_core(
             torch.cat([o.boxes for o in outs]), torch.cat([o.scores for o in outs]),
             torch.cat([o.classes for o in outs]), torch.cat([o.valid for o in outs]),
-            n, float(fe_res.total_frames), fe.w_pix, fe.hop_spectro, cfg.num_classes,
-            NMS_THRESH, cfg.merge_nms_max_boxes,
+            fe_res.n_windows, float(fe_res.total_frames), fe.w_pix, fe.hop_spectro,
+            cfg.num_classes, NMS_THRESH, cfg.merge_nms_max_boxes,
         )
+
+
+def detect_spectrogram(model: NbmModel, cfg, spec: torch.Tensor, window_cols: np.ndarray,
+                       batch_size: int, min_score: float,
+                       nms_thresh: float = NMS_THRESH) -> Detections:
+    """Per-window detections (n, R, ...) of the windows of `spec` (h, T) at
+    the column indices `window_cols` (n, w), in batches of `batch_size`.
+    The JAX package also pads the spectrogram to a frame bucket for its
+    compiles; the gather never reads the padding, so the port does not."""
+    with torch.inference_mode():
+        outs = _run_windows(model, spec, window_cols, batch_size, min_score, nms_thresh)
+        n = window_cols.shape[0]
+        return Detections(*(torch.cat(parts)[:n] for parts in zip(*outs)))
+
+
+def merge_detections(det: Detections, spectrogram_length: int, cfg,
+                     nms_thresh: float = NMS_THRESH,
+                     n_real: Optional[int] = None) -> Dict[str, Dict[str, np.ndarray]]:
+    """-> {class_id_str: {"bbox_coord": (k, 4), "scores": (k,)}} over classes
+    1..num_classes (the reference's schema). `det` may be padded past the
+    real window count: pass n_real."""
+    fe = cfg.frontend
+    with torch.inference_mode():
+        packed = _merge_core(
+            det.boxes, det.scores, det.classes, det.valid,
+            n_real if n_real is not None else det.scores.shape[0], float(spectrogram_length),
+            fe.w_pix, fe.hop_spectro, cfg.num_classes, nms_thresh, cfg.merge_nms_max_boxes,
+        )
+    return packed_to_class_dict(packed.cpu().numpy(), cfg)
 
 
 def packed_dropped_count(packed: np.ndarray) -> int:
@@ -211,6 +260,151 @@ def packed_to_species_dict(packed, cfg, reverse):
                 "scores": entry["scores"].tolist(),
             }
     return output, dropped
+
+
+class FilePrefetcher:
+    """Decodes the next file and runs its front-end on one worker thread
+    while the caller runs the current file's detector. On the card the
+    front-end runs on a side stream (its copies from pinned memory), and
+    the result carries an event recorded after it (FrontendResult.ready):
+    the consumer's stream waits on that event, not on the whole side
+    stream. submit(path_or_samples) returns a future resolving to a
+    FrontendResult, or None when the audio does not decode or is empty;
+    any other exception is raised by the future."""
+
+    def __init__(self, frontend: SpectrogramFrontend, sample_rate: int = 44_100):
+        self.frontend = frontend
+        self.sample_rate = sample_rate
+        self._pool = cf.ThreadPoolExecutor(1)
+        self._stream = (torch.cuda.Stream(device=frontend.device)
+                        if frontend.device.type == "cuda" else None)
+
+    def _work(self, item) -> Optional[FrontendResult]:
+        if isinstance(item, (str, os.PathLike)):
+            samples = load_audio_raw(str(item), self.sample_rate)
+        else:
+            samples = item
+        if samples is None or np.asarray(samples).size == 0:
+            return None
+        if self._stream is None:
+            return self.frontend.process(samples)
+        with torch.cuda.stream(self._stream):
+            fe_res = self.frontend.process(samples)
+            fe_res.ready = torch.cuda.Event()
+            fe_res.ready.record(self._stream)
+        return fe_res
+
+    def submit(self, item) -> cf.Future:
+        return self._pool.submit(self._work, item)
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=True)
+
+
+def _adopt(fe_res) -> None:
+    """Make the current stream wait for a side stream's spectrogram, and
+    keep the allocator from handing its block out before that stream's
+    work on it is done."""
+    if getattr(fe_res, "ready", None) is not None:
+        stream = torch.cuda.current_stream(fe_res.spec.device)
+        stream.wait_event(fe_res.ready)
+        fe_res.spec.record_stream(stream)
+
+
+def _start_readback(packed):
+    """Start copying a packed result to the host. On the card: into pinned
+    memory, without waiting, with an event behind the copy (a plain
+    ``.cpu()`` would wait for all the work queued before it, the next
+    file's detector too). A CPU tensor or a host array needs no copy."""
+    if isinstance(packed, torch.Tensor) and packed.is_cuda:
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(packed.device))
+        return host, done
+    return packed, None
+
+
+def _finish_readback(started):
+    host, done = started
+    if done is not None:
+        done.synchronize()
+    return host.numpy() if isinstance(host, torch.Tensor) else host
+
+
+def stream_detections(model: NbmModel, cfg, frontend: SpectrogramFrontend, sources,
+                      min_score: float, batch: int, sample_rate: int = 44_100,
+                      on_frontend=None, detect_fn=None):
+    """The per-file detection loop of infer/serve.py and infer/sweep.py
+    (JAX package: infer/pipeline.py:401), overlapped three ways: file
+    i+1's decode, host-to-device copy and STFT run in the prefetcher
+    (a thread, and on the card a side stream), file i's detector and merge
+    are enqueued on the current stream, and file i-1's packed rows are
+    read back and handed to the caller, so each yielded (source, packed)
+    is deferred by one file. `packed` is the host array of detect_file.
+    Sources may be paths or PCM arrays; a source that does not decode is
+    skipped (the reference's run_detection returns None for it). Any
+    other error, such as one of the front-end on the card, is raised.
+    `on_frontend(source, fe_res)` is called before the detector is
+    enqueued; `detect_fn(fe_res) -> packed`, when given, takes the place
+    of detect_file (model, cfg, min_score and batch are then unused).
+    Each FrontendResult is dropped once its detector is enqueued, so a
+    sweep holds at most two spectrograms."""
+    sources = list(sources)
+    prefetcher = FilePrefetcher(frontend, sample_rate)
+    try:
+        futs = [prefetcher.submit(s) for s in sources[:1]]
+        pending = None
+        for i, src in enumerate(sources):
+            fe_res = futs[i].result()
+            futs[i] = None
+            if i + 1 < len(sources):
+                futs.append(prefetcher.submit(sources[i + 1]))
+            if fe_res is None:
+                continue
+            _adopt(fe_res)
+            if on_frontend is not None:
+                on_frontend(src, fe_res)
+            if detect_fn is not None:
+                packed = detect_fn(fe_res)
+            else:
+                packed = detect_file(model, cfg, fe_res, min_score, batch)
+            fe_res = None
+            if pending is not None:
+                yield pending[0], _finish_readback(pending[1])
+            pending = (src, _start_readback(packed))
+        if pending is not None:
+            yield pending[0], _finish_readback(pending[1])
+    finally:
+        prefetcher.close()
+
+
+def detect_from_frontend(model: NbmModel, cfg, fe_res: FrontendResult, min_score: float,
+                         bs: int, whole_file: bool = True) -> Dict[str, Dict[str, np.ndarray]]:
+    """Per-class merged detections of one front-end result: through
+    detect_file, or with whole_file=False through detect_spectrogram and
+    merge_detections with the detections padded to the JAX package's
+    power-of-two window bucket (at least 16)."""
+    if whole_file:
+        return packed_to_class_dict(detect_file(model, cfg, fe_res, min_score, bs).cpu().numpy(),
+                                    cfg)
+    det = detect_spectrogram(model, cfg, fe_res.spec, fe_res.window_cols, bs, min_score)
+    n = fe_res.n_windows
+    n_bucket = 1 << max(4, (n - 1).bit_length())
+    if n_bucket != n:
+        det = Detections(*(torch.cat([t, t.new_zeros((n_bucket - n,) + t.shape[1:])])
+                           for t in det))
+    return merge_detections(det, fe_res.total_frames, cfg, n_real=n)
+
+
+def detect_samples(model: NbmModel, cfg, samples: np.ndarray, min_score: float, bs: int,
+                   frontend: Optional[SpectrogramFrontend] = None
+                   ) -> Dict[str, Dict[str, np.ndarray]]:
+    """PCM samples (int16 or float32) -> per-class merged detections, on
+    the model's device."""
+    device = next(model.parameters()).device
+    frontend = frontend or SpectrogramFrontend(cfg.frontend, device=device)
+    return detect_from_frontend(model, cfg, frontend.process(samples), min_score, bs)
 
 
 def run_detection(

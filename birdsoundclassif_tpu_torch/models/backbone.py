@@ -8,9 +8,10 @@ and 4 stages are tapped after [relu, layer1..layer4] (5 levels at strides
 positional embedding. The module tree gives the reference's state_dict keys
 (``backbone.0.init_conv``, ``backbone.0.body.layer1.0.conv1``, ...).
 
-The JAX package folds the frozen BNs and the init_conv into the convs at
-load time for speed (models/optimize.py). The port runs them unfolded,
-which is the same function; the folds are a later performance item.
+For inference the frozen BNs and the init_conv are folded into the convs
+(models/optimize.py, as the JAX package's load_model does): a folded model
+has biased backbone convs, identity BNs, a stem over the 1-channel input
+and its border term ``body.stem_corr``.
 """
 
 from __future__ import annotations
@@ -67,6 +68,7 @@ class ResNet(nn.Module):
         spec = RESNET_SPECS[name]
         self.conv1 = tnn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False, init="fan_out")
         self.bn1 = tnn.FrozenBatchNorm2d(64)
+        self.stem_corr = None  # the folded init_conv's border term (models/optimize.py)
         in_ch = 64
         for stage, n_blocks in enumerate(spec["layers"]):
             planes = 64 * (2 ** stage)
@@ -85,7 +87,11 @@ class ResNet(nn.Module):
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.conv1(x)
+        if self.stem_corr is not None:
+            out = tnn.stem_corr_add(self.stem_corr.weight, out, x.shape, self.conv1.stride,
+                                    self.conv1.padding)
+        out = F.relu(self.bn1(out))
         feats = [out]  # level '2': post-relu, pre-maxpool, stride 2
         out = F.max_pool2d(out, 3, 2, 1)
         for stage in range(4):

@@ -181,6 +181,17 @@ class BatchNorm2d(_Norm):
         return (y + self.bias[:, None, None]).to(x.dtype)
 
 
+def stem_corr_add(weight: torch.Tensor, y: torch.Tensor, x_shape, stride,
+                  padding) -> torch.Tensor:
+    """Add the folded init_conv's border term to a stem conv output
+    (JAX package: models/nn.py:344). `weight` (C_out, 1, kh, kw) is the
+    bias-contracted kernel of models/optimize.py:fold_init_conv; the term is
+    the stem's response to a batch-1, 1-channel ones-map with the same
+    stride and padding, in y's dtype, broadcast over the batch."""
+    ones = torch.ones((1, 1) + tuple(x_shape[2:4]), dtype=y.dtype, device=y.device)
+    return y + F.conv2d(ones, weight.to(y.dtype), None, stride, padding)
+
+
 def init_weights(module: nn.Module, gen: torch.Generator) -> None:
     """Fill every layer of `module` from `gen`, in registration order."""
     for m in module.modules():

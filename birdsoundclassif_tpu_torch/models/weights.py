@@ -51,10 +51,16 @@ def _rcnn_lin_t2j(w: np.ndarray, c: int, ph: int, pw: int) -> np.ndarray:
     )
 
 
-def key_map(cfg) -> Dict[str, Tuple[str, str]]:
+def key_map(cfg, folded_bn: bool = False, folded_stem: bool = False
+            ) -> Dict[str, Tuple[str, str]]:
     """-> {torch_key: (jax_path, transform)}, transform in {conv, lin,
     rcnn_lin, raw}, for ResNet backbones, the default attention pyramid,
-    the plain FPN and the conv RCNN head."""
+    the plain FPN and the conv RCNN head. The flags map the trees of the
+    inference folds (models/optimize.py, the JAX package's optimize.py):
+    `folded_bn`, biased backbone convs and no backbone BNs (the JAX tree
+    keeps them as identities, the folded port model has none);
+    `folded_stem`, the stem's border term ``stem_corr`` and no
+    init_conv."""
     if cfg.backbone not in RESNET_SPECS or cfg.fpn != "fpn" or cfg.tf_rcnn:
         raise ValueError(
             f"weights for backbone={cfg.backbone!r}, fpn={cfg.fpn!r}, "
@@ -83,22 +89,27 @@ def key_map(cfg) -> Dict[str, Tuple[str, str]]:
         if pe:
             conv(tk + ".pe_proj", jk + "/pe_proj")
 
+    def conv_bn(tc, jc, tn, jn):
+        conv(tc, jc, bias=folded_bn)
+        if not folded_bn:
+            bn(tn, jn)
+
     # ---- backbone (Joiner '0') ----
-    if cfg.inpt_channels != 3:
-        conv("backbone.0.init_conv", "backbone/init_conv")
     b, j = "backbone.0.body", "backbone/body"
-    conv(b + ".conv1", j + "/conv1", bias=False)
-    bn(b + ".bn1", j + "/bn1")
+    if cfg.inpt_channels != 3 and folded_stem:
+        conv(b + ".stem_corr", j + "/stem_corr", bias=False)
+    elif cfg.inpt_channels != 3:
+        conv("backbone.0.init_conv", "backbone/init_conv")
+    conv_bn(b + ".conv1", j + "/conv1", b + ".bn1", j + "/bn1")
     for stage, n_blocks in enumerate(RESNET_SPECS[cfg.backbone]["layers"]):
         for blk in range(n_blocks):
             tb = f"{b}.layer{stage + 1}.{blk}"
             jb = f"{j}/layer{stage + 1}/{blk}"
             for ci in (1, 2, 3):
-                conv(f"{tb}.conv{ci}", f"{jb}/conv{ci}", bias=False)
-                bn(f"{tb}.bn{ci}", f"{jb}/bn{ci}")
+                conv_bn(f"{tb}.conv{ci}", f"{jb}/conv{ci}", f"{tb}.bn{ci}", f"{jb}/bn{ci}")
             if blk == 0:
-                conv(f"{tb}.downsample.0", f"{jb}/downsample/conv", bias=False)
-                bn(f"{tb}.downsample.1", f"{jb}/downsample/bn")
+                conv_bn(f"{tb}.downsample.0", f"{jb}/downsample/conv",
+                        f"{tb}.downsample.1", f"{jb}/downsample/bn")
 
     # ---- attention pyramid ----
     n_layers, top_n = cfg.n_layers, cfg.pyramid_top_n_attn
@@ -143,11 +154,13 @@ def flatten_params(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
 def params_to_state_dict(params: Any, cfg) -> Dict[str, torch.Tensor]:
     """JAX params (nested dict or flat slash-joined keys) -> the port's
     state_dict (float32 CPU tensors). Keys absent from `params` are left
-    out."""
+    out. A folded tree gives the state_dict of a folded model
+    (models/optimize.py), such as ``fold_inference(NbmModel(cfg))``."""
     flat = flatten_params(params)  # a flat dict passes through unchanged
     c, ph, pw = cfg.out_fpn_chan, cfg.roi_pool_h, cfg.roi_pool_w
     out: Dict[str, torch.Tensor] = {}
-    for tk, (jk, kind) in key_map(cfg).items():
+    folds = ("backbone/body/conv1/b" in flat, "backbone/body/stem_corr/w" in flat)
+    for tk, (jk, kind) in key_map(cfg, *folds).items():
         if jk not in flat:
             continue
         v = np.asarray(flat[jk], dtype=np.float32)
@@ -164,10 +177,13 @@ def params_to_state_dict(params: Any, cfg) -> Dict[str, torch.Tensor]:
 def state_dict_to_params(state_dict: Dict[str, torch.Tensor], cfg) -> Dict[str, np.ndarray]:
     """The port's state_dict -> JAX params as flat slash-joined keys
     (float32 numpy, the ``params.npz`` layout); the inverse of
-    params_to_state_dict. Every key of the map must be present."""
+    params_to_state_dict (of a folded model too). Every key of the map
+    must be present."""
     c, ph, pw = cfg.out_fpn_chan, cfg.roi_pool_h, cfg.roi_pool_w
     out: Dict[str, np.ndarray] = {}
-    for tk, (jk, kind) in key_map(cfg).items():
+    folds = ("backbone.0.body.conv1.bias" in state_dict,
+             "backbone.0.body.stem_corr.weight" in state_dict)
+    for tk, (jk, kind) in key_map(cfg, *folds).items():
         if tk not in state_dict:
             raise KeyError(f"state_dict has no '{tk}' (JAX key '{jk}')")
         v = state_dict[tk].detach().to("cpu", torch.float32).numpy()

@@ -87,6 +87,9 @@ class Trainer:
 
     def __init__(self, model, cfg):
         check_training_config(cfg)
+        if getattr(model, "inference_folded", False):
+            raise ValueError("the model carries the inference folds (models/optimize.py): "
+                             "train the unfolded model")
         self.model = model
         self.cfg = cfg
         self.device = next(model.parameters()).device

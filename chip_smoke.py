@@ -26,15 +26,19 @@ port's sources, and nothing of the JAX package. Phases, in order:
      synthetic 120 s PCM16 wav, and the port's CLI on cuda with
      --min_score 0 --batch 4. The kernel's launch count must rise by
      exactly 2*ceil(n_windows/4) + 1, and the .txt must parse into finite,
-     in-range boxes. Then the same file again, warm: stage times (median
-     of 5), the detector with trainable and with frozen weights in turns
-     (inference_mode must keep autograd out), and one profiled run (device
-     idle share, top kernels).
+     in-range boxes. The CLI's model is the inference fold of the
+     checkpoint (load_model). Then the same file again, warm: stage times
+     (median of 5), the detector with trainable and with frozen weights in
+     turns (inference_mode must keep autograd out), the folded and the
+     unfolded model in turns (median of 5 each) and one profiled run of
+     each (device time and idle share, kernel launches, top kernels; the
+     folded run's copy_, mul and add calls).
   4. The NMS inputs of that run, recorded on the way, go through the
      kernel and the plain version again: equal masks, the kernel's time,
      the plain version's time and the bound, summed over the file.
   5. A small-input reference check: the tiny float32 config run on the CPU
-     (plain NMS) and on the card (kernel) agree on the same wav.
+     (plain NMS) and on the card (kernel) agree on the same wav, and on
+     the card the folded model agrees with the unfolded one.
   6. Training: a dataset in the JAX ETL's layout (positive windows with
      boxes around the tone bursts, negative and hard-negative windows of
      noise; 375x1024 PNGs written by the port's encoder, which cycles all
@@ -61,10 +65,27 @@ port's sources, and nothing of the JAX package. Phases, in order:
      controls, the card step with a fault put in: TF32 on (read only), one
      tensor's gradient zeroed (must exceed PARAM_MEAN_TOL), the same
      tensor's gradient scaled by 0.9 (must exceed MU_TOL there).
+  8. Serving at the flagship config on cuda: a folder of six synthetic
+     wavs of 20-240 s (one in a subfolder), a corrupt and an empty one,
+     through the watch-folder service (infer/serve.py, --once, settle 0):
+     the stats, the manifest, every .txt and JSONL record equal to the
+     per-file detect_file of that file on the same model (bit for bit is
+     expected and recorded; the PERF.md section 2 bar is the limit), and
+     the NMS launch count exactly sum(2*ceil(n_windows/4) + 1) over the
+     good files. A restart processes nothing; a rewritten file, and it
+     alone, is processed again; a file written now is skipped with settle
+     2 s. The sweep (infer/sweep.py) over the same folder gives the same
+     detections, with its own launch count. TF32: the f32 RPN head's
+     output of the flagship file with a thread running the STFT beside
+     the detector equals the output with no such thread, and with TF32
+     forced on in the detector (the control) it differs. Timing: the
+     sweep's realtime factor against a sequential loop (decode, front-end,
+     detect_file, readback, file after file), median of 3 in turns, and
+     one profiled pass of each (device idle share, longest idle gaps).
 
-The line before the last is {"kernels": [...]}, the last
-{"ok": true, "device": {...}}. Any failed check exits non-zero before
-either is printed.
+The lines before the last are {"serving": {...}} and {"kernels": [...]},
+the last {"ok": true, "device": {...}}. Any failed check exits non-zero
+before they are printed.
 """
 
 from __future__ import annotations
@@ -113,6 +134,20 @@ LOSS_TOL = 1e-4
 PARAM_MEAN_TOL = 5e-3
 MU_TOL = 5e-2
 MU_NOISE = 1e-7
+
+
+@contextlib.contextmanager
+def tf32_on():
+    """Both TF32 switches on: stands in for a module's full_f32 in the
+    TF32 controls of phases 7 and 8."""
+    import torch
+
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 
 
 def fail(msg: str) -> None:
@@ -220,10 +255,66 @@ def bound(boxes: np.ndarray, nv: np.ndarray, keep: np.ndarray, thr: float):
     return t_bytes, t_ops, pairs
 
 
+def same_detections(a: dict, b: dict, what: str) -> None:
+    """The PERF.md section 2 bar on two species dicts: species, count and
+    order exact, boxes within 1 px, scores within 1e-4."""
+    check(list(a) == list(b), f"{what}: species differ: {list(a)} vs {list(b)}")
+    for sp in a:
+        ba, bb = np.asarray(a[sp]["bbox_coord"]), np.asarray(b[sp]["bbox_coord"])
+        check(ba.shape == bb.shape, f"{what}: {sp}: {len(ba)} boxes against {len(bb)}")
+        check(np.abs(ba - bb).max() <= 1.0, f"{what}: {sp}: boxes differ by more than 1 px")
+        check(np.abs(np.asarray(a[sp]["scores"]) - np.asarray(b[sp]["scores"])).max() <= 1e-4,
+              f"{what}: {sp}: scores differ by more than 1e-4")
+
+
 def burst_runs(mask: np.ndarray):
     """(start, end) of each run of True in a 1-d mask, end exclusive."""
     d = np.diff(np.concatenate([[0], mask.astype(np.int8), [0]]))
     return list(zip(np.nonzero(d == 1)[0], np.nonzero(d == -1)[0]))
+
+
+def device_timeline(prof, wall_s: float, op_calls: bool = False) -> dict:
+    """The device's side of a torch.profiler run over `wall_s` seconds of
+    host time: its ops' summed time and the union of their intervals (two
+    streams may overlap), the idle share of the wall by that union, the
+    five longest idle gaps, the kernel launches the host enqueued (runtime
+    calls), and with `op_calls` the calls of copy_, mul and add. It reads
+    the profiler's raw events: parsing them into prof.events() takes
+    minutes for a sweep's hundred thousand kernels."""
+    import torch
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    events = prof.profiler.kineto_results.events()
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+                   if e.device_type() == cuda and not e.is_user_annotation())
+    union_ns, gaps, cur = 0, [], None
+    for a, b in spans:
+        if cur is None:
+            cur = [a, b]
+        elif a > cur[1]:
+            union_ns += cur[1] - cur[0]
+            gaps.append(a - cur[1])
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    if cur is not None:
+        union_ns += cur[1] - cur[0]
+    out = dict(
+        wall_ms=wall_s * 1e3,
+        device_ms=sum(b - a for a, b in spans) / 1e6,
+        device_union_ms=union_ns / 1e6,
+        idle_share=1 - union_ns / 1e9 / wall_s,
+        longest_gaps_ms=[g / 1e6 for g in sorted(gaps, reverse=True)[:5]],
+        kernel_launches=sum(1 for e in events
+                            if e.device_type() == cpu and "LaunchKernel" in e.name()),
+    )
+    if op_calls:
+        calls = dict.fromkeys(("aten::copy_", "aten::mul", "aten::add", "aten::add_"), 0)
+        for ka in prof.key_averages():
+            if ka.key in calls:
+                calls[ka.key] = ka.count
+        out["calls"] = calls
+    return out
 
 
 def write_training_dataset(root: str, spec: np.ndarray, cols: np.ndarray, noise_spec: np.ndarray,
@@ -301,15 +392,6 @@ def training_reference_check(seed: int) -> dict:
     gen = torch.Generator().manual_seed(seed)
     real_prefix, real_f32 = rpn_mod.greedy_nms_prefix, loop_mod.full_f32
     uniforms = {}
-
-    @contextlib.contextmanager
-    def tf32_on():  # stands in for the trainer's full_f32 in the TF32 control
-        prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
-        try:
-            yield
-        finally:
-            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 
     def run_side(d, fault=None, target=None):
         model = NbmModel(tiny).init_weights(torch.Generator().manual_seed(seed)).to(d)
@@ -427,6 +509,293 @@ def training_reference_check(seed: int) -> dict:
                for name, r in [("sound", sound)] + list(controls.items())}}
 
 
+# Phase 8's folder: six synthetic recordings (one in a subfolder).
+SERVE_SECONDS = (20.0, 45.0, 75.0, 120.0, 180.0, 240.0)
+
+
+def serving_phase(seed: int, kern) -> dict:
+    """Phase 8: the watch-folder service and the sweep at the flagship
+    config on the card, their NMS launch counts, the TF32 check with a
+    front-end thread beside the detector, and the streamed loop's realtime
+    factor against a sequential one. Returns the readings."""
+    import threading
+
+    import torch
+
+    from birdsoundclassif_tpu_torch.audio.frontend import (
+        SpectrogramFrontend, window_column_indices)
+    from birdsoundclassif_tpu_torch.audio.wavio import load_audio_raw
+    from birdsoundclassif_tpu_torch.config import NbmConfig
+    from birdsoundclassif_tpu_torch.infer import pipeline as pipe_mod
+    from birdsoundclassif_tpu_torch.infer import serve as serve_mod
+    from birdsoundclassif_tpu_torch.infer import sweep as sweep_mod
+    from birdsoundclassif_tpu_torch.models import detector as detector_mod
+    from birdsoundclassif_tpu_torch.models.detector import NbmModel
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    cfg = NbmConfig()
+    fe_cfg = cfg.frontend
+    bs = 4
+    _, reverse = pipe_mod.load_bird_dict()
+
+    def frames(path) -> int:
+        with wave.open(path) as w:
+            return 1 + w.getnframes() // fe_cfg.hop_length
+
+    def want_launches(paths) -> int:
+        return sum(2 * math.ceil(window_column_indices(frames(p), fe_cfg.w_pix,
+                                                       fe_cfg.hop_spectro).shape[0] / bs) + 1
+                   for p in paths)
+
+    def read_txt(path):
+        with open(os.path.splitext(path)[0] + ".txt") as f:
+            return ast.literal_eval(f.read())
+
+    def read_jsonl(path):
+        with open(path) as f:
+            return [json.loads(line) for line in f]
+
+    held = {"bit_equal": 0, "within_bar_only": 0, "unequal": []}
+
+    def hold(got, want, what):
+        """Equal bits expected; the PERF.md section 2 bar is the limit."""
+        if got == want:
+            held["bit_equal"] += 1
+            return
+        same_detections(got, want, what)
+        held["within_bar_only"] += 1
+        held["unequal"].append(what)
+
+    out = {"config": "NbmConfig() flagship (resnet50 frozen BN, bf16, rpn_head_f32), batch 4, "
+                     "min_score 0, folded by load_model", "batch": bs}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ckpt = os.path.join(tmp, "model_weights")
+        os.makedirs(ckpt)
+        torch.save({"checkpoints": NbmModel(cfg).init_weights(
+            torch.Generator().manual_seed(seed)).state_dict()},
+            os.path.join(ckpt, "model_chkpt.pt"))
+        cfg.save(os.path.join(ckpt, "args"))
+        audio = os.path.join(tmp, "audio")
+        os.makedirs(os.path.join(audio, "sub"))
+        good = []
+        for i, sec in enumerate(SERVE_SECONDS):
+            good.append(os.path.join(audio, "sub" if i == 2 else "", f"night{i}.wav"))
+            write_wav(good[-1], sec, seed + 10 + i)
+        corrupt, empty = os.path.join(audio, "corrupt.wav"), os.path.join(audio, "empty.wav")
+        with open(corrupt, "wb") as f:
+            f.write(b"RIFF\x10\x00\x00\x00WAVEjunk" * 8)
+        open(empty, "wb").close()
+        old = time.time() - 60
+        for dirpath, _, names in os.walk(audio):
+            for name in names:
+                os.utime(os.path.join(dirpath, name), (old, old))
+        model, _ = pipe_mod.load_model(ckpt, dev)
+        frontend = SpectrogramFrontend(fe_cfg, device=dev)
+        print(f"serving setup: flagship checkpoint and {len(good)} wavs of "
+              f"{sum(SERVE_SECONDS):.0f} s in {time.perf_counter() - t0:.1f} s", flush=True)
+
+        def reference(path):
+            """detect_file of one file on the current stream, read back."""
+            fe = frontend.process(load_audio_raw(path, fe_cfg.sample_rate))
+            packed = pipe_mod.detect_file(model, cfg, fe, 0.0, bs).cpu().numpy()
+            return pipe_mod.packed_to_species_dict(packed, cfg, reverse)[0]
+
+        out_jsonl, manifest = os.path.join(tmp, "serve.jsonl"), os.path.join(tmp, "manifest.jsonl")
+
+        def serve_once(settle=0.0):
+            torch.cuda.synchronize()
+            kern.launches = 0
+            t0 = time.perf_counter()
+            stats = serve_mod.serve(model, cfg, audio, batch=bs, min_score=0.0, settle=settle,
+                                    out_path=out_jsonl, manifest_path=manifest, once=True)
+            torch.cuda.synchronize()
+            return stats, kern.launches, time.perf_counter() - t0
+
+        # ---- first pass: the backlog ----
+        stats, launches, wall = serve_once()
+        want = want_launches(good)
+        check(stats == {"cycles": 1, "files": len(good), "detections": stats["detections"],
+                        "decode_failures": 2}, f"serve first pass: {stats}")
+        check(launches == want, f"serve launched nms_in_order {launches} times, want "
+                                f"sum(2*ceil(n_windows/{bs}) + 1) = {want}")
+        rows = read_jsonl(manifest)
+        status = {r["file"]: r["status"] for r in rows}
+        check(len(rows) == len(good) + 2 and all(status[p] == "ok" for p in good)
+              and status[corrupt] == status[empty] == "decode_failed",
+              f"manifest after the first pass: {[(r['file'], r['status']) for r in rows]}")
+        recs = {r["file"]: r for r in read_jsonl(out_jsonl)}
+        check(sorted(recs) == sorted(good), f"serve records: {sorted(recs)}")
+        refs = {p: reference(p) for p in good}
+        for p in good:
+            name = os.path.relpath(p, audio)
+            hold(read_txt(p), refs[p], f"serve .txt of {name}")
+            hold(recs[p]["detections"], refs[p], f"serve record of {name}")
+        n_det = {p: sum(len(e["scores"]) for e in refs[p].values()) for p in good}
+        check(stats["detections"] == sum(n_det.values()) > 0
+              and all(r["detections"] == n_det[r["file"]] for r in rows if r["status"] == "ok"),
+              f"serve detections {stats['detections']}, per file {n_det}")
+        out["serve_first_pass"] = dict(stats=stats, wall_s=wall, nms_launches=launches,
+                                       nms_launches_want=want)
+        print(f"serve first pass: {stats}, {wall:.2f} s, nms_in_order launches {launches} == "
+              f"{want}; .txt and records against per-file detect_file: {held['bit_equal']} bit "
+              f"for bit, {held['within_bar_only']} within the bar only", flush=True)
+
+        # ---- a restart, a rewritten file, a file still being written ----
+        stats, launches, _ = serve_once()
+        check(stats["files"] == 0 and stats["decode_failures"] == 0 and launches == 0,
+              f"serve restart processed something: {stats}, {launches} launches")
+        out["serve_restart"] = stats
+        changed = good[1]
+        write_wav(changed, 60.0, seed + 30)
+        os.utime(changed, (old, old))
+        stats, launches, _ = serve_once()
+        want_changed = want_launches([changed])
+        check(stats["files"] == 1 and stats["decode_failures"] == 0 and launches == want_changed,
+              f"serve after a rewrite: {stats}, {launches} launches, want 1 file and "
+              f"{want_changed}")
+        check(read_jsonl(manifest)[-1]["file"] == changed, "the rewritten file has no new row")
+        refs[changed] = reference(changed)
+        n_det[changed] = sum(len(e["scores"]) for e in refs[changed].values())
+        hold(read_txt(changed), refs[changed], "serve .txt of the rewritten file")
+        out["serve_rewrite"] = dict(stats=stats, nms_launches=launches)
+        hot = os.path.join(audio, "hot.wav")
+        write_wav(hot, 20.0, seed + 40)
+        stats, launches, _ = serve_once(settle=2.0)
+        check(stats["files"] == 0 and launches == 0 and not os.path.exists(hot[:-4] + ".txt"),
+              f"serve with settle 2 s processed a file being written: {stats}")
+        os.remove(hot)
+        out["serve_settle"] = stats
+        print("serve restart: nothing processed; rewritten file processed alone "
+              f"({want_changed} launches); a file written now skipped with settle 2 s", flush=True)
+
+        # ---- the sweep over the same folder ----
+        torch.cuda.synchronize()
+        kern.launches = 0
+        sweep_jsonl = os.path.join(tmp, "sweep.jsonl")
+        sstats = sweep_mod.sweep(model, cfg, audio, bs, 0.0, sweep_jsonl)
+        torch.cuda.synchronize()
+        sweep_launches = kern.launches
+        want = want_launches(good)
+        check(sstats["files"] == len(good) + 2 and sstats["devices"] == 1
+              and sstats["detections"] == sum(n_det.values()), f"sweep stats: {sstats}")
+        check(sweep_launches == want, f"the sweep launched nms_in_order {sweep_launches} times, "
+                                      f"want {want}")
+        srecs = {r["file"]: r for r in read_jsonl(sweep_jsonl)}
+        check(sorted(srecs) == sorted(good), f"sweep records: {sorted(srecs)}")
+        for p in good:
+            hold(srecs[p]["detections"], refs[p], f"sweep record of {os.path.relpath(p, audio)}")
+        out["sweep"] = dict(stats=sstats, nms_launches=sweep_launches, nms_launches_want=want)
+        print(f"sweep: {sstats}, nms_in_order launches {sweep_launches} == {want}", flush=True)
+
+        # ---- TF32: the f32 RPN head beside a front-end thread ----
+        flagship = good[3]
+        samples = load_audio_raw(flagship, fe_cfg.sample_rate)
+        fe = frontend.process(samples)
+        heads = []
+        hook = model.head.rpn.register_forward_hook(
+            lambda m, i, o: heads.append((o[0].clone(), o[1].clone())))
+
+        def head_outputs():
+            heads.clear()
+            pipe_mod.detect_file(model, cfg, fe, 0.0, bs)
+            torch.cuda.synchronize()
+            return list(heads)
+
+        def same_heads(a, b) -> bool:
+            return len(a) == len(b) and all(torch.equal(x, y) for pa, pb in zip(a, b)
+                                            for x, y in zip(pa, pb))
+
+        try:
+            base = head_outputs()
+            prefetcher = pipe_mod.FilePrefetcher(SpectrogramFrontend(fe_cfg, device=dev))
+            stop, spins = threading.Event(), [0]
+
+            def spin():
+                while not stop.is_set():
+                    prefetcher.submit(samples).result()
+                    spins[0] += 1
+
+            thread = threading.Thread(target=spin)
+            thread.start()
+            try:
+                while spins[0] < 1:
+                    time.sleep(0.001)
+                n0 = spins[0]
+                threaded = head_outputs()
+                beside = spins[0] - n0
+            finally:
+                stop.set()
+                thread.join()
+                prefetcher.close()
+            real_f32 = detector_mod.full_f32
+            detector_mod.full_f32 = tf32_on
+            try:
+                control = head_outputs()
+            finally:
+                detector_mod.full_f32 = real_f32
+        finally:
+            hook.remove()
+        control_err = max(float((x - y).abs().max()) for pa, pb in zip(base, control)
+                          for x, y in zip(pa, pb))
+        check(beside >= 1, "no front-end ran beside the detector in the TF32 check")
+        check(same_heads(base, threaded), "the f32 RPN head's output changed with a front-end "
+                                          "thread beside the detector: TF32 leaked in")
+        check(not same_heads(base, control), "the TF32 control gave the same RPN head output: "
+                                             "the check cannot see TF32")
+        out["tf32"] = dict(head_batches=len(base), stft_runs_beside=beside, equal=True,
+                           control_max_abs_diff=control_err)
+        print(f"TF32 check: the f32 RPN head's output of the 120 s file ({len(base)} batches) is "
+              f"bit for bit the same with {beside} front-end runs on a side thread beside the "
+              f"detector; with TF32 forced on it differs by {control_err:.3g}", flush=True)
+
+        # ---- timing: the streamed sweep against a sequential loop ----
+        audio_s = sum(frames(p) * fe_cfg.dt_actual for p in good)
+
+        def sequential():
+            for p in good:
+                x = load_audio_raw(p, fe_cfg.sample_rate)
+                packed = pipe_mod.detect_file(model, cfg, frontend.process(x), 0.0,
+                                              bs).cpu().numpy()
+                output, _ = pipe_mod.packed_to_species_dict(packed, cfg, reverse)
+                with open(os.path.splitext(p)[0] + ".txt", "w") as f:
+                    f.write(str(output))
+
+        loops = {"streamed": lambda: sweep_mod.sweep(model, cfg, audio, bs, 0.0),
+                 "sequential": sequential}
+        times = {"streamed": [], "sequential": []}
+        for which in ("streamed", "sequential", "sequential", "streamed", "streamed",
+                      "sequential"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loops[which]()
+            torch.cuda.synchronize()
+            times[which].append(time.perf_counter() - t0)
+        for which in ("streamed", "sequential"):
+            # the card's activity alone: recording every host op of a sweep
+            # slows the host, the more so with the prefetch thread
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loops[which]()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            med = float(np.median(times[which]))
+            out[which] = dict(seconds=times[which], realtime_factor_median=audio_s / med,
+                              profiled=device_timeline(prof, wall))
+            p = out[which]["profiled"]
+            print(f"{which}: {audio_s:.1f} s of audio in {med:.3f} s (median of 3), realtime "
+                  f"factor {audio_s / med:.1f}; profiled pass {wall:.3f} s, device busy "
+                  f"{p['device_union_ms']:.1f} ms, idle share {p['idle_share']:.3f}, longest "
+                  f"idle gaps {[round(g, 2) for g in p['longest_gaps_ms']]} ms", flush=True)
+        out["audio_seconds"] = audio_s
+        out["files_s"] = {os.path.relpath(p, audio): frames(p) * fe_cfg.dt_actual for p in good}
+        out["detections_held"] = held
+        del model
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -445,11 +814,22 @@ def main() -> int:
         from birdsoundclassif_tpu_torch.infer.pipeline import (
             detect_file, load_bird_dict, load_model, packed_to_species_dict)
         from birdsoundclassif_tpu_torch.audio.wavio import load_audio_raw
+        from birdsoundclassif_tpu_torch.models import weights as weights_mod
         from birdsoundclassif_tpu_torch.models.detector import NbmModel
+        from birdsoundclassif_tpu_torch.models.optimize import fold_inference
         from birdsoundclassif_tpu_torch.ops import nms as nms_mod
     except ImportError as e:
         fail(f"the port does not import ({e}): run from the root of a checkout")
     dev = torch.device("cuda")
+
+    t_start = time.perf_counter()
+    phase_end_s = {}
+
+    def phase_done(n: int) -> None:
+        """Seconds since the start when each phase ended (the script must
+        stay well inside its 900 s call)."""
+        phase_end_s[n] = time.perf_counter() - t_start
+        print(f"[phase {n} done at {phase_end_s[n]:.1f} s]", flush=True)
 
     # ---- 1. card and build ----
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -516,6 +896,8 @@ def main() -> int:
         check(torch.equal(keep_k, keep_again), f"{what}: the same launch twice gave two masks")
         return float((keep_k.float() - keep_p.float()).abs().max().item()) if keep_k.numel() else 0.0
 
+    phase_done(1)
+
     # ---- 2. kernel phase: the port's shapes, edges, worst cases ----
     rng = np.random.default_rng(args.seed)
     switch = nms_mod.NMS_ONE_LAUNCH_MAX_N
@@ -561,6 +943,8 @@ def main() -> int:
         want_suppressed = 1 if thr == 0.7 else 3
         check(not keep[want_suppressed], f"tie {thr}: IoU == float32({thr}) must suppress")
     print("kernel tie cases: IoU == float32(thresh) suppresses, equal to plain", flush=True)
+
+    phase_done(2)
 
     # ---- 3. main path through the CLI at the flagship config ----
     cfg = NbmConfig()
@@ -632,15 +1016,17 @@ def main() -> int:
 
         # the same file again, warm: stage times and where the device time goes
         model, _ = load_model(ckpt, dev)
+        check(getattr(model, "inference_folded", False) and model.backbone[0].init_conv is None,
+              "load_model did not return the folded model")
         frontend = SpectrogramFrontend(cfg.frontend, device=dev)
         samples = load_audio_raw(wav, cfg.frontend.sample_rate)
 
-        def one_file():
+        def one_file(m=None):
             t = [time.perf_counter()]
             fe = frontend.process(samples)
             torch.cuda.synchronize()
             t.append(time.perf_counter())
-            packed = detect_file(model, cfg, fe, 0.0, bs).cpu().numpy()
+            packed = detect_file(m or model, cfg, fe, 0.0, bs).cpu().numpy()
             t.append(time.perf_counter())
             packed_to_species_dict(packed, cfg, reverse)
             t.append(time.perf_counter())
@@ -662,21 +1048,40 @@ def main() -> int:
         print(f"warm detector+merge, median of 3 in turns: trainable weights "
               f"{np.median(detector_s[True]) * 1e3:.2f} ms, frozen weights "
               f"{np.median(detector_s[False]) * 1e3:.2f} ms", flush=True)
+        # the inference folds: the folded model (load_model's) against the
+        # unfolded one, warm detector + merge in turns, then one profiled
+        # file each
         from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            one_file()
-            torch.cuda.synchronize()
-            prof_wall = time.perf_counter() - t0
-        busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA)
-        print(f"profiled warm file: wall {prof_wall * 1e3:.2f} ms, device kernels "
-              f"{busy_us / 1e3:.2f} ms, device idle share "
-              f"{1 - busy_us / 1e6 / prof_wall:.3f}", flush=True)
-        print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=15,
-                                        max_name_column_width=60), flush=True)
-        del model
+        unfolded = NbmModel(cfg)
+        weights_mod.load_into(unfolded, weights_mod.load_params(ckpt, cfg))
+        folds = {"folded": model, "unfolded": unfolded.to(dev).eval()}
+        one_file(folds["unfolded"])
+        fold_s = {"folded": [], "unfolded": []}
+        for which in ("folded", "unfolded", "unfolded", "folded", "folded", "unfolded",
+                      "unfolded", "folded", "folded", "unfolded"):
+            fold_s[which].append(one_file(folds[which])[1])
+        fold_stats = {}
+        for which in ("folded", "unfolded"):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                one_file(folds[which])
+                torch.cuda.synchronize()
+                prof_wall = time.perf_counter() - t0
+            fold_stats[which] = dict(detector_ms_median=float(np.median(fold_s[which])) * 1e3,
+                                     profiled=device_timeline(prof, prof_wall, op_calls=True))
+            p = fold_stats[which]["profiled"]
+            print(f"{which} model: warm detector+merge "
+                  f"{fold_stats[which]['detector_ms_median']:.2f} ms (median of 5, in turns); "
+                  f"profiled file wall {p['wall_ms']:.2f} ms, device kernels "
+                  f"{p['device_ms']:.2f} ms, device idle share {p['idle_share']:.3f}, "
+                  f"{p['kernel_launches']} kernel launches, calls {p['calls']}", flush=True)
+            if which == "folded":
+                print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=15,
+                                                max_name_column_width=60), flush=True)
+        del model, folds, unfolded
+
+    phase_done(3)
 
     # ---- 4. the main path's own NMS inputs: equality, times, bound ----
     uses = {}
@@ -713,6 +1118,8 @@ def main() -> int:
     bytes_ms = sum(u["bytes_ms"] for u in uses.values())
     ops_ms = sum(u["ops_ms"] for u in uses.values())
 
+    phase_done(4)
+
     # ---- 5. small-input reference: CPU (plain NMS) vs card (kernel) ----
     with tempfile.TemporaryDirectory() as tmp:
         tiny = NbmConfig()
@@ -723,6 +1130,17 @@ def main() -> int:
         write_wav(wav, 6.0, args.seed + 1)
         samples = load_audio_raw(wav, tiny.frontend.sample_rate)
         model = NbmModel(tiny).init_weights(torch.Generator().manual_seed(args.seed)).eval()
+        # statistics and affines of the frozen batch norms away from the
+        # identity, so that folding them is a real check
+        bn_rng = np.random.default_rng(args.seed + 5)
+        with torch.no_grad():
+            for m in model.backbone.modules():
+                if type(m).__name__ == "FrozenBatchNorm2d":
+                    ch = m.weight.shape[0]
+                    m.running_mean.copy_(torch.from_numpy(bn_rng.normal(0, 0.1, ch)))
+                    m.running_var.copy_(torch.from_numpy(1 + bn_rng.uniform(size=ch)))
+                    m.weight.copy_(torch.from_numpy(bn_rng.normal(1, 0.1, ch)))
+                    m.bias.copy_(torch.from_numpy(bn_rng.normal(0, 0.1, ch)))
         res = {}
         for d in ("cpu", "cuda"):
             model = model.to(d)
@@ -754,22 +1172,25 @@ def main() -> int:
         check(tf32_err > SPEC_TOL, f"the TF32 control differs from the cpu by only {tf32_err} "
                                    f"<= {SPEC_TOL}: the check cannot tell TF32 from float32")
         a, b = res["cpu"][1], res["cuda"][1]
-        check(sorted(a) == sorted(b), f"species differ: {sorted(a)} vs {sorted(b)}")
-        for sp in a:
-            ba, bb = np.asarray(a[sp]["bbox_coord"]), np.asarray(b[sp]["bbox_coord"])
-            check(ba.shape == bb.shape, f"{sp}: {len(ba)} boxes on cpu, {len(bb)} on cuda")
-            check(np.abs(ba - bb).max() <= 1.0, f"{sp}: boxes differ by more than 1 px")
-            check(np.abs(np.asarray(a[sp]["scores"]) - np.asarray(b[sp]["scores"])).max()
-                  <= 1e-4, f"{sp}: scores differ by more than 1e-4")
+        same_detections(a, b, "cpu vs cuda")
         check(a, "the reference check found no detections at min_score 0")
+        # the inference folds on the card: folded against unfolded
+        fe = SpectrogramFrontend(tiny.frontend, device=dev).process(samples)
+        folded = fold_inference(model)
+        check(next(folded.parameters()).is_cuda, "the folded model left the card")
+        packed = detect_file(folded, tiny, fe, 0.0, 2).cpu().numpy()
+        same_detections(packed_to_species_dict(packed, tiny, reverse)[0], b,
+                        "cuda folded vs unfolded")
         print(f"reference check (tiny f32 config, 6 s wav): cpu and cuda agree on "
               f"{sum(len(v['scores']) for v in a.values())} detections, spectrogram "
               f"max abs diff {spec_err:.3g} (limit {SPEC_TOL:g}; TF32 control "
-              f"{tf32_err:.3g})", flush=True)
+              f"{tf32_err:.3g}); on cuda the folded model agrees with the unfolded one",
+              flush=True)
+
+    phase_done(5)
 
     # ---- 6. training at the flagship config through the port's driver ----
     from birdsoundclassif_tpu_torch.data import png as png_mod
-    from birdsoundclassif_tpu_torch.models import weights as weights_mod
     from birdsoundclassif_tpu_torch.models import rpn as rpn_mod
     from birdsoundclassif_tpu_torch.train import driver as driver_mod
     from birdsoundclassif_tpu_torch.train import loop as loop_mod
@@ -986,9 +1407,20 @@ def main() -> int:
               f"plain {p_ms:.1f} ms, bound {max(t_bytes, t_ops):.6f} ms ({pairs} IoUs)", flush=True)
     print(json.dumps({"training": training}), flush=True)
 
+    phase_done(6)
+
     # ---- 7. small-input training reference: CPU vs card, one pos + one neg step ----
     reference = training_reference_check(args.seed)
     print(json.dumps({"training_reference": reference}), flush=True)
+
+    phase_done(7)
+
+    # ---- 8. serving at the flagship config: serve, sweep, TF32, overlap ----
+    serving = serving_phase(args.seed, kern)
+    phase_done(8)
+    serving["folds"] = fold_stats
+    serving["phase_end_s"] = phase_end_s
+    serving["card"] = card
 
     bad = [m for m in sys.modules
            if m == "jax" or m.startswith("jax.") or m == "birdsoundclassif_tpu"
@@ -1015,8 +1447,12 @@ def main() -> int:
         "training_resume_launches": resume_launches,
         "per_step_uses": step_uses,
         "synthetic": synthetic,
+        "serve_launches": serving["serve_first_pass"]["nms_launches"],
+        "serve_rewrite_launches": serving["serve_rewrite"]["nms_launches"],
+        "sweep_launches": serving["sweep"]["nms_launches"],
         "card": card,
     }]
+    print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -23,6 +23,10 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import birdsoundclassif_tpu_torch\n"
         "import birdsoundclassif_tpu_torch.infer.cli\n"
         "import birdsoundclassif_tpu_torch.infer.pipeline\n"
+        "import birdsoundclassif_tpu_torch.infer.serve\n"
+        "import birdsoundclassif_tpu_torch.infer.sweep\n"
+        "import birdsoundclassif_tpu_torch.models.optimize\n"
+        "import birdsoundclassif_tpu_torch.audio.mp3\n"
         "import birdsoundclassif_tpu_torch.train.driver\n"
         "import birdsoundclassif_tpu_torch.data.image_dataset\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -39,17 +43,18 @@ def test_import_loads_no_jax_and_no_jax_package():
 def test_sources_import_nothing_of_jax():
     pattern = re.compile(r"^\s*(import jax|from jax|import birdsoundclassif_tpu\b(?!_)"
                          r"|from birdsoundclassif_tpu[ .])", re.M)
-    scanned = 0
+    scanned = set()
     for dirpath, _, files in os.walk(PORT):
         for name in files:
             if name.endswith(".py"):
                 with open(os.path.join(dirpath, name)) as f:
                     hits = pattern.findall(f.read())
                 assert not hits, f"{name}: {hits}"
-                scanned += 1
+                scanned.add(os.path.relpath(os.path.join(dirpath, name), PORT))
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         assert not pattern.findall(f.read())
-    assert scanned >= 20
+    assert len(scanned) >= 20
+    assert {"models/optimize.py", "audio/mp3.py", "infer/serve.py", "infer/sweep.py"} <= scanned
 
 
 def test_cli_raises_without_gpu_unless_device_cpu(tmp_path):
