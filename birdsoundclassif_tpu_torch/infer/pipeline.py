@@ -16,6 +16,17 @@ there and are simply not run here, which leaves the merge result
 unchanged. The per-window route (``detect_from_frontend(whole_file=
 False)``) pads the detections to the JAX package's bucket as it does.
 
+``detect_file_packed`` is the JAX package's bucketed whole-file program
+(infer/pipeline.py:133-207 there), the live twin of the exported one
+(infer/export.py): the spectrogram padded to a multiple of _FRAME_BUCKET
+frames, the windows to a power-of-two count of batches, one window-batch
+function (gather + detector, ``WindowBatch``) for each batch that holds a
+real window, and the merge (``Merge``) over the bucket. The JAX package
+runs the detector over the padding batches too and masks them out of the
+merge; here their slots are zeros with valid False, which leaves the kept
+rows and n_dropped unchanged and keeps the NMS launches of a file at
+2 * ceil(n_windows / bs) + 1, as on detect_file's path.
+
 ``stream_detections`` is the loop of the serving entry points
 (infer/serve.py, infer/sweep.py): file i+1's decode, host-to-device copy
 and STFT run on a prefetch thread and, on the card, a side stream, while
@@ -33,6 +44,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..audio.frontend import FrontendResult, SpectrogramFrontend
 from ..audio.wavio import load_audio_raw
@@ -48,6 +60,9 @@ _ASSET_BIRD_DICT = os.path.join(os.path.dirname(__file__), "..", "assets", "bird
 # IoU threshold of the detection NMS and the cross-window merge NMS
 # (reference: run_detection.py)
 NMS_THRESH = 0.3
+# spectrogram length granularity of the bucketed program: the exported
+# window-batch program takes any multiple of it
+_FRAME_BUCKET = 8192
 
 
 def load_bird_dict(path: Optional[str] = None) -> Tuple[Dict[str, int], Dict[int, str]]:
@@ -75,14 +90,23 @@ def load_model(model_dir: str, device: torch.device | str = "cuda") -> Tuple[Nbm
     return fold_inference(model.eval(), cfg).to(dev), cfg
 
 
+def detector_device(detector) -> torch.device:
+    """The device a detector runs on: a model's weights', or the device an
+    infer/export.py ExportedDetector was loaded for."""
+    if isinstance(detector, nn.Module):
+        return next(detector.parameters()).device
+    return detector.device
+
+
 def _merge_core(
-    boxes, scores, classes, valid, n_real: int, spectrogram_length: float,
+    boxes, scores, classes, valid, n_real, spectrogram_length,
     w_pix: int, hop_spectro: int, num_classes: int, nms_thresh: float, max_boxes: int,
 ) -> torch.Tensor:
     """Cross-window merge (reference: merge_images, run_detection.py:163-249)
     of per-window detections (n, r, ...) -> packed (rows + 1, 7) float32:
     [x1, y1, x2, y2, score, class, keep] in candidate order, then a metadata
-    row [n_dropped, 0, 0, 0, 0, 0, -1]."""
+    row [n_dropped, 0, 0, 0, 0, 0, -1]. n_real and spectrogram_length are
+    Python numbers or 0-d tensors (the exported merge takes tensors)."""
     n, r = scores.shape
     dev = scores.device
     win_idx = torch.arange(n, device=dev)[:, None].expand(n, r)
@@ -149,6 +173,107 @@ def _merge_core(
     return torch.cat([rows, meta], dim=0)
 
 
+def bucket_sizes(batch_size: int, max_windows: int) -> List[int]:
+    """Window-count buckets: batch_size * 2**i up to max_windows (at least
+    one), the counts the bucketed program pads a file's windows to."""
+    out = [batch_size]
+    while out[-1] * 2 <= max_windows:
+        out.append(out[-1] * 2)
+    return out
+
+
+def window_bucket(n_windows: int, bs: int) -> int:
+    """The bucket of a file of n_windows: bs * the next power of two of its
+    count of batches."""
+    n_chunks = max(1, -(-n_windows // bs))
+    return bs * (1 << (n_chunks - 1).bit_length())
+
+
+def frame_bucket(total_frames: int) -> int:
+    """The spectrogram length the bucketed program pads a file to."""
+    return max(_FRAME_BUCKET, -(-total_frames // _FRAME_BUCKET) * _FRAME_BUCKET)
+
+
+class WindowBatch(nn.Module):
+    """Gather + detector over one batch of windows: spec (h, T) float32,
+    cols (bs, w) int64 column indices, min_score a 0-d float32 tensor ->
+    fixed-slot detections (boxes, scores, classes, valid). The program
+    infer/export.py exports once, with T symbolic."""
+
+    def __init__(self, model: NbmModel, nms_thresh: float = NMS_THRESH):
+        super().__init__()
+        self.model = model
+        self.nms_thresh = nms_thresh
+
+    def forward(self, spec: torch.Tensor, cols: torch.Tensor, min_score: torch.Tensor):
+        det = self.model(spec[:, cols].permute(1, 0, 2), self.nms_thresh, min_score)
+        return det.boxes, det.scores, det.classes, det.valid
+
+
+class Merge(nn.Module):
+    """_merge_core over one window bucket, with n_real (int32) and
+    spectrogram_length (float32) as 0-d tensors. infer/export.py exports
+    one for each bucket: the capacity branch depends on the bucket."""
+
+    def __init__(self, cfg, nms_thresh: float = NMS_THRESH):
+        super().__init__()
+        self.cfg = cfg
+        self.nms_thresh = nms_thresh
+
+    def forward(self, boxes, scores, classes, valid, n_real, spectrogram_length):
+        fe = self.cfg.frontend
+        return _merge_core(boxes, scores, classes, valid, n_real, spectrogram_length,
+                           fe.w_pix, fe.hop_spectro, self.cfg.num_classes, self.nms_thresh,
+                           self.cfg.merge_nms_max_boxes)
+
+
+def _cols_to(cols: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Window column indices to the device, through pinned memory on the
+    card so that the copy waits for nothing."""
+    cols_t = torch.from_numpy(cols)
+    if device.type == "cuda":
+        cols_t = cols_t.pin_memory()
+    return cols_t.to(device, non_blocking=True)
+
+
+def run_bucketed(window_batch, merge, fe_res: FrontendResult, min_score: float, bs: int,
+                 n_bucket: int) -> torch.Tensor:
+    """One file through a window-batch function and a merge for n_bucket
+    windows, live or exported: the spectrogram padded to frame_bucket, the
+    batches that hold a real window run, the rest of the bucket zeros with
+    valid False. Returns the packed merge rows on the spectrogram's device
+    (see _merge_core), without waiting for them."""
+    spec = fe_res.spec
+    t = spec.shape[1]
+    t_pad = frame_bucket(t)
+    if t_pad != t:
+        spec = torch.nn.functional.pad(spec, (0, t_pad - t))
+    n = fe_res.n_windows
+    n_run = -(-n // bs) * bs
+    cols = np.zeros((n_run, fe_res.window_cols.shape[1]), np.int64)
+    cols[:n] = fe_res.window_cols
+    cols_t = _cols_to(cols, spec.device)
+    # host scalars: 0-d CPU tensors go into a kernel's arguments, no copy
+    score_t = torch.tensor(min_score, dtype=torch.float32)
+    outs = [window_batch(spec, cols_t[i:i + bs], score_t) for i in range(0, n_run, bs)]
+    parts = [torch.cat(p) for p in zip(*outs)]
+    if n_bucket > n_run:
+        parts = [torch.cat([p, p.new_zeros((n_bucket - n_run,) + p.shape[1:])]) for p in parts]
+    return merge(*parts, torch.tensor(n, dtype=torch.int32),
+                 torch.tensor(float(fe_res.total_frames), dtype=torch.float32))
+
+
+def detect_file_packed(model: NbmModel, cfg, fe_res: FrontendResult, min_score: float, bs: int,
+                       nms_thresh: float = NMS_THRESH) -> torch.Tensor:
+    """The live bucketed program of one file (JAX package:
+    infer/pipeline.py:180): the packed merge rows over window_bucket(n,
+    bs) windows on the spectrogram's device, without waiting for them.
+    Its kept rows and n_dropped equal detect_file's."""
+    with torch.inference_mode():
+        return run_bucketed(WindowBatch(model, nms_thresh), Merge(cfg, nms_thresh), fe_res,
+                            min_score, bs, window_bucket(fe_res.n_windows, bs))
+
+
 def _run_windows(model: NbmModel, spec: torch.Tensor, window_cols: np.ndarray, bs: int,
                  min_score: float, nms_thresh: float) -> List[Detections]:
     """The detector over the windows of `spec` in batches of `bs`, the last
@@ -157,10 +282,7 @@ def _run_windows(model: NbmModel, spec: torch.Tensor, window_cols: np.ndarray, b
     n_pad = -(-n // bs) * bs
     cols = np.zeros((n_pad, window_cols.shape[1]), np.int64)
     cols[:n] = window_cols
-    cols_t = torch.from_numpy(cols)
-    if spec.device.type == "cuda":
-        cols_t = cols_t.pin_memory()  # so that the copy waits for nothing
-    cols_t = cols_t.to(spec.device, non_blocking=True)
+    cols_t = _cols_to(cols, spec.device)
     return [model(spec[:, cols_t[i:i + bs]].permute(1, 0, 2), nms_thresh, min_score)  # (bs, h, w)
             for i in range(0, n_pad, bs)]
 

@@ -21,11 +21,12 @@ Usage:
   python -m birdsoundclassif_tpu_torch.infer.serve --ckpt model_weights \
       --audio_dir DIR [--poll 5] [--settle 2] [--min_score 0.2] \
       [--batch 32] [--out results.jsonl] [--manifest PATH] [--once] \
-      [--device cuda]
+      [--device cuda] [--exported ARTIFACT_DIR]
 
 It runs on the card unless ``--device cpu`` is given, and raises when no
-card is present. Serving an exported program (the JAX package's
-``--exported``) is not ported yet.
+card is present. ``--exported DIR`` serves an artifact of infer/export.py
+in place of ``--ckpt``: its programs, its batch size, on the device type
+it was exported for.
 """
 
 from __future__ import annotations
@@ -98,15 +99,20 @@ def serve(
     bird_dict_path: Optional[str] = None,
     once: bool = False,
     on_cycle=None,
+    detect_fn=None,
 ):
-    """Run the watch loop on the model's device. ``once=True`` drains the
-    current backlog and returns (tests and cron-style deployments);
-    otherwise it loops until interrupted. ``on_cycle(stats)`` is called
-    after every poll cycle. Returns the cumulative stats."""
+    """Run the watch loop on the detector's device. `model` is an NbmModel
+    or an infer/export.py ExportedDetector; ``detect_fn(fe_res) ->
+    packed``, when given, takes the place of detect_file (see
+    stream_detections). ``once=True`` drains the current backlog and
+    returns (tests and cron-style deployments); otherwise it loops until
+    interrupted. ``on_cycle(stats)`` is called after every poll cycle.
+    Returns the cumulative stats."""
     from ..audio.frontend import SpectrogramFrontend
-    from .pipeline import load_bird_dict, packed_to_species_dict, stream_detections
+    from .pipeline import (detector_device, load_bird_dict, packed_to_species_dict,
+                           stream_detections)
 
-    frontend = SpectrogramFrontend(cfg.frontend, device=next(model.parameters()).device)
+    frontend = SpectrogramFrontend(cfg.frontend, device=detector_device(model))
     _, reverse = load_bird_dict(bird_dict_path)
     manifest = Manifest(manifest_path or os.path.join(audio_dir, ".nbm_serve_manifest.jsonl"))
     writer = open(out_path, "a") if out_path else None
@@ -119,7 +125,8 @@ def serve(
             stat_of = dict(ready)
             done = set()
             for path, packed in stream_detections(model, cfg, frontend, [p for p, _ in ready],
-                                                  min_score, batch, sample_rate=sr):
+                                                  min_score, batch, sample_rate=sr,
+                                                  detect_fn=detect_fn):
                 output, dropped = packed_to_species_dict(packed, cfg, reverse)
                 n_det = sum(len(e["scores"]) for e in output.values())
                 # the JAX package's naming, kept: every ".wav" in the path
@@ -157,6 +164,9 @@ def serve(
 def main(argv=None) -> int:
     p = argparse.ArgumentParser("NBM watch-folder detection service (PyTorch)")
     p.add_argument("--ckpt", default="model_weights")
+    p.add_argument("--exported", default=None,
+                   help="serve an infer/export.py artifact directory instead of --ckpt "
+                        "(the batch size comes from the artifact)")
     p.add_argument("--audio_dir", required=True)
     p.add_argument("--batch", type=int, default=32)
     p.add_argument("--min_score", type=float, default=0.2)
@@ -174,12 +184,22 @@ def main(argv=None) -> int:
     a = p.parse_args(argv)
 
     from ..device import resolve_device
-    from .pipeline import load_model
 
-    model, cfg = load_model(a.ckpt, resolve_device(a.device))
+    detect_fn = None
+    if a.exported:
+        from .export import ExportedDetector
+
+        model = ExportedDetector.load(a.exported, a.device)
+        cfg = model.cfg
+        a.batch = model.batch_size
+        detect_fn = lambda fe: model.detect_file_packed(fe, a.min_score)  # noqa: E731
+    else:
+        from .pipeline import load_model
+
+        model, cfg = load_model(a.ckpt, resolve_device(a.device))
     stats = serve(model, cfg, a.audio_dir, a.batch, a.min_score, a.poll, a.settle, a.out,
                   a.manifest, a.bird_dict, a.once,
-                  on_cycle=lambda s: print(json.dumps(s), flush=True))
+                  on_cycle=lambda s: print(json.dumps(s), flush=True), detect_fn=detect_fn)
     print(json.dumps(stats))
     return 0
 

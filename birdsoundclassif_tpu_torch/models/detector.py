@@ -103,9 +103,10 @@ class NbmModel(nn.Module):
         return self.head.fast_rcnn.rcnn(pooled, pe)
 
     def forward(self, samples: torch.Tensor, nms_thresh: float = 0.3,
-                min_score: float = 0.5) -> Detections:
+                min_score: float | torch.Tensor = 0.5) -> Detections:
         """Windows (B, H, W) or (B, C_in, H, W) -> fixed-slot detections
-        (B, R, 4) / (B, R). Float32 parts run in full float32 (no TF32)."""
+        (B, R, 4) / (B, R). Float32 parts run in full float32 (no TF32).
+        min_score may be a 0-d float32 tensor (see fast_rcnn_inference)."""
         if samples.dim() == 3:
             samples = samples[:, None]
         with full_f32():

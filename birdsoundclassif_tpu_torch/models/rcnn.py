@@ -69,8 +69,11 @@ def fast_rcnn_inference(
     roi_valid: torch.Tensor,     # (B, R)
     cfg,
     nms_thresh: float = 0.3,
-    min_score: float = 0.5,
+    min_score: float | torch.Tensor = 0.5,
 ) -> Detections:
+    """min_score is a Python number or a 0-d float32 tensor: an exported
+    program takes it as an input, so that its threshold is chosen when it
+    runs (infer/export.py)."""
     b, r = rois.shape[:2]
     num_classes = cfg.num_classes
 

@@ -7,9 +7,15 @@ descending-score order, +1 widths; reference: nets_utils.py:210-245) and
 match the JAX package bit for bit: the IoU is computed in float32 in the
 same operation order, against a float32 threshold.
 
-``greedy_nms_prefix`` dispatches by the tensor's device: a CPU tensor takes
-the plain version, a CUDA tensor launches the hand-written kernel
-(``csrc/nms_in_order.cu``) or raises. There is no fallback between them.
+``greedy_nms_prefix`` calls the registered operator
+``torch.ops.birdsoundclassif_tpu_torch.nms_in_order``, which dispatches by
+the tensors' device: a CPU tensor takes the plain version, a CUDA tensor
+launches the hand-written kernel (``csrc/nms_in_order.cu``) or raises, and
+any other device raises. There is no fallback between them. Because it is
+an operator with a schema and a fake implementation, ``torch.export``
+records it as one node of the graph (infer/export.py), and a loaded
+program launches the kernel through the same CUDA implementation, which
+counts the launch.
 ``greedy_nms_bitmask_scan`` is a second plain version that follows the
 kernel's algorithm (suppression bitmask in 64-bit words, scan in chunks of
 64 pivots) so that its word logic is tested where no kernel can run.
@@ -74,7 +80,8 @@ def nms_in_order(boxes: torch.Tensor, n_valid: torch.Tensor, iou_thresh: float) 
     greedy order with the n_valid[b] (int32) valid entries first. Launches
     on the current stream and does not synchronise. One call counts as one
     launch in ``NMS_KERNEL.launches``, whether it took one kernel (rows up
-    to NMS_ONE_LAUNCH_MAX_N) or two (bitmask, then scan)."""
+    to NMS_ONE_LAUNCH_MAX_N) or two (bitmask, then scan). The operator's
+    CUDA implementation; the main paths reach it through the operator."""
     if boxes.device.type != "cuda" or n_valid.device != boxes.device:
         raise ValueError("nms_in_order takes CUDA tensors on one device")
     if boxes.dtype != torch.float32 or n_valid.dtype != torch.int32:
@@ -247,17 +254,45 @@ def greedy_nms_bitmask_scan(boxes: torch.Tensor, n_valid: torch.Tensor, iou_thre
     return keep
 
 
-def greedy_nms_prefix(boxes: torch.Tensor, n_valid: torch.Tensor, iou_thresh: float) -> torch.Tensor:
-    """keep (B, N) for boxes (B, N, 4) already in greedy order with all
-    n_valid[b] valid entries first. CUDA tensors launch the kernel; CPU
-    tensors take the plain version."""
-    n_valid = n_valid.to(torch.int32)
-    if boxes.device.type == "cuda":
-        return nms_in_order(boxes.float().contiguous(), n_valid.contiguous(), iou_thresh)
-    if boxes.device.type != "cpu":
-        raise ValueError(f"greedy_nms_prefix runs on cuda or cpu, not {boxes.device}")
+def _not_cuda_or_cpu(boxes: torch.Tensor) -> ValueError:
+    return ValueError(f"nms_in_order runs on cuda or cpu, not {boxes.device}")
+
+
+@torch.library.custom_op("birdsoundclassif_tpu_torch::nms_in_order", mutates_args=())
+def nms_op(boxes: torch.Tensor, n_valid: torch.Tensor, iou_thresh: float) -> torch.Tensor:
+    """The operator: keep (B, N) bool for boxes (B, N, 4) float32 already in
+    greedy order with the n_valid[b] (B,) int32 valid entries first. This
+    body serves the devices that have no implementation below: it raises."""
+    raise _not_cuda_or_cpu(boxes)
+
+
+@nms_op.register_kernel("cuda")
+def _nms_op_cuda(boxes, n_valid, iou_thresh):
+    # the module attribute, looked up at each call: a caller may wrap it
+    return nms_in_order(boxes, n_valid, iou_thresh)
+
+
+@nms_op.register_kernel("cpu")
+def _nms_op_cpu(boxes, n_valid, iou_thresh):
     valid = torch.arange(boxes.shape[1], device=boxes.device)[None, :] < n_valid[:, None]
     return greedy_nms_in_order(boxes, valid, iou_thresh, valid_prefix=True)
+
+
+@nms_op.register_fake
+def _nms_op_fake(boxes, n_valid, iou_thresh):
+    # fake tensors carry the device they stand for; a real meta tensor
+    # reaches this too, and is refused like any other device
+    if boxes.device.type not in ("cuda", "cpu"):
+        raise _not_cuda_or_cpu(boxes)
+    return boxes.new_empty(boxes.shape[:2], dtype=torch.bool)
+
+
+def greedy_nms_prefix(boxes: torch.Tensor, n_valid: torch.Tensor, iou_thresh: float) -> torch.Tensor:
+    """keep (B, N) for boxes (B, N, 4) already in greedy order with all
+    n_valid[b] valid entries first, through the operator: CUDA tensors
+    launch the kernel, CPU tensors take the plain version."""
+    return nms_op(boxes.float().contiguous(), n_valid.to(torch.int32).contiguous(),
+                  float(iou_thresh))
 
 
 def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor, iou_thresh: float):

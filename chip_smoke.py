@@ -83,8 +83,27 @@ port's sources, and nothing of the JAX package. Phases, in order:
      detect_file, readback, file after file), median of 3 in turns, and
      one profiled pass of each (device idle share, longest idle gaps).
 
-The lines before the last are {"serving": {...}} and {"kernels": [...]},
-the last {"ok": true, "device": {...}}. Any failed check exits non-zero
+  9. Export at the flagship config on cuda: the phase-3 checkpoint (the
+     same seed) through infer/export.py main (batch 4, --max_windows 64:
+     buckets 4-64); the window-batch program must hold two NMS operator
+     nodes and every tensor on the card. Fresh processes (export_child)
+     time the cold start of load_model and of ExportedDetector.load, each
+     plus the 120 s file; in the exported one the file at two min_score
+     values must equal the live detect_file (the PERF.md section 2 bar,
+     bit for bit recorded) and the live bucketed detect_file_packed bit for
+     bit, with exactly 2*ceil(49/4) + 1 = 27 NMS launches; TF32 forced on
+     around the programs must break the bar (the control); phase 8's 180 s
+     file (74 windows, bucket 128) must raise; warm exported and live files
+     in turns and one profiled exported file are readings. Then serve
+     --exported --once over phase 8's files that fit bucket 64 (.txt and
+     records against per-file detect_file, exact launch sum), warm's
+     (n_bucket, t_pad) pairs for 120 s and 600 s against the JAX
+     package's formula, and the operator's in-call time against the
+     ctypes call at B=4 N=500 and B=2 N=3000.
+
+The lines before the last are {"training": ...}, {"training_reference":
+...}, {"serving": {...}}, {"export": {...}} and {"kernels": [...]}, the
+last {"ok": true, "device": {...}}. Any failed check exits non-zero
 before they are printed.
 """
 
@@ -796,6 +815,411 @@ def serving_phase(seed: int, kern) -> dict:
     return out
 
 
+EXPORT_BATCH = 4
+EXPORT_MAX_WINDOWS = 64
+# phase 8's files that fit the artifact's largest bucket (120 s: 49 windows,
+# bucket 64); the 180 s file (74 windows, bucket 128) is the one that raises
+EXPORT_SERVE_SECONDS = SERVE_SECONDS[:4]
+EXPORT_TOO_LONG_SECONDS = SERVE_SECONDS[4]
+
+
+def within_bar(a: dict, b: dict) -> bool:
+    """same_detections as a reading: True when the PERF.md section 2 bar
+    holds."""
+    if list(a) != list(b):
+        return False
+    for sp in a:
+        ba, bb = np.asarray(a[sp]["bbox_coord"]), np.asarray(b[sp]["bbox_coord"])
+        if ba.shape != bb.shape or (ba.size and np.abs(ba - bb).max() > 1.0):
+            return False
+        sa, sb = np.asarray(a[sp]["scores"]), np.asarray(b[sp]["scores"])
+        if sa.size and np.abs(sa - sb).max() > 1e-4:
+            return False
+    return True
+
+
+def kept_rows(packed: np.ndarray):
+    """The kept rows of a packed merge output, and its n_dropped."""
+    rows = packed[:-1]
+    return rows[rows[:, 6] > 0.5], float(packed[-1, 0])
+
+
+def export_child(which: str, art: str, ckpt: str, wav: str, out: str, min_scores) -> None:
+    """Phase 9's fresh process (``python3 -c "import chip_smoke;
+    chip_smoke.export_child(...)"``), which imports only the port. Cold
+    start: ``which`` "live" times load_model plus the first file,
+    "exported" ExportedDetector.load plus the first file. The exported
+    process then runs the 120 s file at each of `min_scores` with the NMS
+    launches counted, with TF32 forced on (the control), a file beyond the
+    largest bucket, warm exported against warm live files in turns, and
+    one profiled exported file; it writes the packed outputs to
+    ``out``.npz and the readings to ``out``.json."""
+    t_start = time.perf_counter()
+    import torch
+
+    from birdsoundclassif_tpu_torch.audio.frontend import SpectrogramFrontend
+    from birdsoundclassif_tpu_torch.audio.wavio import load_audio_raw
+    from birdsoundclassif_tpu_torch.infer import export as export_mod
+    from birdsoundclassif_tpu_torch.infer import pipeline as pipe_mod
+    from birdsoundclassif_tpu_torch.ops import nms as nms_mod
+
+    dev = torch.device("cuda")
+    t_imported = time.perf_counter()
+    res = {"import_s": t_imported - t_start}
+    arrays = {}
+
+    def first_file(load):
+        t0 = time.perf_counter()
+        det = load()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cfg = det.cfg if which == "exported" else det[1]
+        frontend = SpectrogramFrontend(cfg.frontend, device=dev)
+        fe = frontend.process(load_audio_raw(wav, cfg.frontend.sample_rate))
+        if which == "exported":
+            packed = det.detect_file_packed(fe, min_scores[0])
+        else:
+            packed = pipe_mod.detect_file(det[0], cfg, fe, min_scores[0], EXPORT_BATCH)
+        packed = packed.cpu().numpy()
+        t2 = time.perf_counter()
+        res.update(load_s=t1 - t0, first_file_s=t2 - t1, cold_s=t2 - t0)
+        return det, frontend, fe, packed
+
+    if which == "live":
+        first_file(lambda: pipe_mod.load_model(ckpt, dev))
+    else:
+        det, frontend, fe, packed = first_file(lambda: export_mod.ExportedDetector.load(art, dev))
+        arrays["cold"] = packed
+        want = 2 * math.ceil(fe.n_windows / det.batch_size) + 1
+        for i, ms in enumerate(min_scores):
+            torch.cuda.synchronize()
+            nms_mod.NMS_KERNEL.launches = 0
+            arrays[f"min_score_{i}"] = det.detect_file_packed(fe, ms).cpu().numpy()
+            launches = nms_mod.NMS_KERNEL.launches
+            check(launches == want, f"the exported file launched nms_in_order {launches} "
+                                    f"times, want 2*ceil({fe.n_windows}/{det.batch_size}) + 1 "
+                                    f"= {want}")
+        res.update(n_windows=fe.n_windows, nms_launches=launches, nms_launches_want=want)
+        real_f32 = export_mod.full_f32
+        export_mod.full_f32 = tf32_on
+        try:
+            arrays["tf32"] = det.detect_file_packed(fe, min_scores[0]).cpu().numpy()
+        finally:
+            export_mod.full_f32 = real_f32
+        # a file that needs a bucket beyond the artifact's largest
+        long_fe = frontend.process(load_audio_raw(wav[:-4] + "_long.wav",
+                                                  det.cfg.frontend.sample_rate))
+        try:
+            det.detect_file_packed(long_fe, min_scores[0])
+            fail(f"a file of {long_fe.n_windows} windows ran on an artifact exported up to "
+                 f"{det.manifest['n_buckets'][-1]}")
+        except ValueError as e:
+            check("max_windows" in str(e), f"the bucket error says: {e}")
+            res["too_long"] = dict(n_windows=long_fe.n_windows, error=str(e))
+        # warm, in turns: the exported programs against the live model
+        model, cfg = pipe_mod.load_model(ckpt, dev)
+        runs = {"exported": lambda: det.detect_file_packed(fe, min_scores[0]),
+                "live": lambda: pipe_mod.detect_file(model, cfg, fe, min_scores[0],
+                                                     EXPORT_BATCH)}
+        for which_run in runs:
+            runs[which_run]().cpu()
+        times = {"exported": [], "live": []}
+        for which_run in ("exported", "live", "live", "exported", "exported", "live", "live",
+                          "exported", "exported", "live"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[which_run]().cpu()
+            times[which_run].append(time.perf_counter() - t0)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            runs["exported"]().cpu()
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        res["warm_s"] = times
+        res["warm_median_ms"] = {k: float(np.median(v)) * 1e3 for k, v in times.items()}
+        res["profiled_exported"] = device_timeline(prof, prof_wall)
+    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "birdsoundclassif_tpu")]
+    check(not bad, f"the export child loaded JAX modules: {bad[:5]}")
+    res["process_s"] = time.perf_counter() - t_start
+    np.savez(out + ".npz", **arrays)
+    with open(out + ".json", "w") as f:
+        json.dump(res, f)
+
+
+def export_phase(seed: int, kern) -> dict:
+    """Phase 9: the export path at the flagship config on the card. The
+    phase-3 checkpoint and 120 s file again (the same seed), exported
+    through infer/export.py main on cuda (batch 4, buckets 4-64), loaded
+    in fresh processes, held against the live path; serve --exported over
+    phase 8's files that fit the buckets; warm's shapes; the operator's
+    in-call time against the ctypes call. Returns the readings."""
+    import torch
+
+    from birdsoundclassif_tpu_torch.audio.frontend import (
+        SpectrogramFrontend, num_windows, window_column_indices)
+    from birdsoundclassif_tpu_torch.audio.wavio import load_audio_raw
+    from birdsoundclassif_tpu_torch.config import NbmConfig
+    from birdsoundclassif_tpu_torch.infer import export as export_mod
+    from birdsoundclassif_tpu_torch.infer import pipeline as pipe_mod
+    from birdsoundclassif_tpu_torch.infer import serve as serve_mod
+    from birdsoundclassif_tpu_torch.models.detector import NbmModel
+    from birdsoundclassif_tpu_torch.ops import nms as nms_mod
+
+    dev = torch.device("cuda")
+    cfg = NbmConfig()
+    fe_cfg = cfg.frontend
+    bs = EXPORT_BATCH
+    _, reverse = pipe_mod.load_bird_dict()
+    out = {"config": "NbmConfig() flagship, the phase-3 weights (seed), folded; batch "
+                     f"{bs}, buckets up to {EXPORT_MAX_WINDOWS} windows"}
+
+    def species(packed):
+        return pipe_mod.packed_to_species_dict(packed, cfg, reverse)[0]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, art = os.path.join(tmp, "model_weights"), os.path.join(tmp, "artifact")
+        os.makedirs(ckpt)
+        torch.save({"checkpoints": NbmModel(cfg).init_weights(
+            torch.Generator().manual_seed(seed)).state_dict()},
+            os.path.join(ckpt, "model_chkpt.pt"))
+        cfg.save(os.path.join(ckpt, "args"))
+        wav = os.path.join(tmp, "night.wav")
+        write_wav(wav, 120.0, seed)
+        write_wav(wav[:-4] + "_long.wav", EXPORT_TOO_LONG_SECONDS, seed + 14)
+
+        # ---- export through the module's main, on cuda ----
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = export_mod.main(["--ckpt", ckpt, "--out", art, "--batch", str(bs),
+                              "--max_windows", str(EXPORT_MAX_WINDOWS), "--device", "cuda"])
+        export_s = time.perf_counter() - t0
+        check(rc == 0, f"export main returned {rc}")
+        with open(os.path.join(art, "manifest.json")) as f:
+            manifest = json.load(f)
+        check(manifest["n_buckets"] == [4, 8, 16, 32, 64] and manifest["device"] == "cuda",
+              f"manifest: {manifest}")
+        sizes = {name: os.path.getsize(os.path.join(art, name)) for name in os.listdir(art)}
+        ep = torch.export.load(os.path.join(art, manifest["window_batch"]))
+        op = torch.ops.birdsoundclassif_tpu_torch.nms_in_order.default
+        op_nodes = sum(1 for n in ep.graph.nodes if n.op == "call_function" and n.target is op)
+        check(op_nodes == 2, f"the window-batch program holds {op_nodes} NMS operator nodes, "
+                             f"want 2 (proposal, detection)")
+        held = list(ep.state_dict.items()) + list(ep.constants.items())
+        off = [k for k, v in held if isinstance(v, torch.Tensor) and v.dim() > 0
+               and not v.is_cuda]
+        check(not off, f"the loaded program holds tensors off the card: {off[:5]}")
+        n_nodes = len(ep.graph.nodes)
+        # what a run of the program calls, node by node, from Python
+        calls = [str(n.target) for n in ep.graph.nodes if n.op == "call_function"]
+        n_asserts = sum("_assert_tensor_metadata" in c for c in calls)
+        del ep
+        print(f"export: {export_s:.1f} s through infer/export.py main, buckets "
+              f"{manifest['n_buckets']}, artifact {sum(sizes.values()) / 2**20:.1f} MiB "
+              f"({sizes[manifest['window_batch']] / 2**20:.1f} MiB window-batch program of "
+              f"{n_nodes} nodes, {len(calls)} of them op calls, {n_asserts} of those metadata "
+              f"asserts, {op_nodes} NMS operator nodes, {len(held)} tensors all on {dev.type})",
+              flush=True)
+        out.update(export_s=export_s, artifact_bytes=sizes, window_batch_nodes=n_nodes,
+                   window_batch_calls=len(calls), window_batch_asserts=n_asserts,
+                   operator_nodes=op_nodes, manifest=manifest)
+
+        # ---- the live references in this process ----
+        model, _ = pipe_mod.load_model(ckpt, dev)
+        frontend = SpectrogramFrontend(fe_cfg, device=dev)
+        fe = frontend.process(load_audio_raw(wav, fe_cfg.sample_rate))
+        live0 = pipe_mod.detect_file(model, cfg, fe, 0.0, bs).cpu().numpy()
+        kept0 = live0[:-1][live0[:-1, 6] > 0.5]
+        # the second threshold keeps about half of the detections
+        min_scores = [0.0, float(np.median(kept0[:, 4]))]
+        live = {ms: pipe_mod.detect_file(model, cfg, fe, ms, bs).cpu().numpy()
+                for ms in min_scores}
+        bucketed = {ms: pipe_mod.detect_file_packed(model, cfg, fe, ms, bs).cpu().numpy()
+                    for ms in min_scores}
+
+        # ---- fresh processes: cold start, and the exported file's checks ----
+        child = {}
+        for which in ("live", "exported"):
+            stem = os.path.join(tmp, f"child_{which}")
+            code = (f"import chip_smoke; chip_smoke.export_child({which!r}, {art!r}, {ckpt!r}, "
+                    f"{wav!r}, {stem!r}, {min_scores!r})")
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                                  timeout=600)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+                fail(f"the {which} export child exited {proc.returncode}")
+            with open(stem + ".json") as f:
+                child[which] = json.load(f)
+            child[which]["wall_s"] = wall
+        got = dict(np.load(os.path.join(tmp, "child_exported.npz")))
+        c = child["exported"]
+        held_bits = {"bit_equal": 0, "within_bar_only": 0}
+        for i, ms in enumerate(min_scores):
+            want_sp, got_sp = species(live[ms]), species(got[f"min_score_{i}"])
+            same_detections(got_sp, want_sp, f"exported against detect_file at min_score {ms}")
+            held_bits["bit_equal" if got_sp == want_sp else "within_bar_only"] += 1
+            gk, gd = kept_rows(got[f"min_score_{i}"])
+            bk, bd = kept_rows(bucketed[ms])
+            check(np.array_equal(gk, bk) and gd == bd,
+                  f"min_score {ms}: the exported kept rows or n_dropped differ from the live "
+                  f"bucketed program's")
+            check(np.array_equal(got[f"min_score_{i}"], bucketed[ms]),
+                  f"min_score {ms}: the exported packed rows differ from the live bucketed "
+                  f"program's")
+        n_kept = [int(kept_rows(got[f"min_score_{i}"])[0].shape[0])
+                  for i in range(len(min_scores))]
+        check(n_kept[1] < n_kept[0], f"min_score {min_scores[1]} kept {n_kept[1]} rows, "
+                                     f"min_score 0 {n_kept[0]}")
+        check(np.array_equal(got["cold"], got["min_score_0"]), "the cold exported file and "
+                                                               "the next one differ")
+        tf32_within = within_bar(species(got["tf32"]), species(live[0.0]))
+        # row by row in candidate order: scores, then boxes
+        tf32_diff = float(np.abs(got["tf32"][:-1, 4] - got["min_score_0"][:-1, 4]).max())
+        tf32_box = float(np.abs(got["tf32"][:-1, :4] - got["min_score_0"][:-1, :4]).max())
+        tf32_kept = int((got["tf32"][:-1, 6] > 0.5).sum())
+        check(not tf32_within, "the TF32 control of the exported program stays within the "
+                               "bar: the check cannot see TF32")
+        print(f"exported file in a fresh process: {c['n_windows']} windows, nms_in_order "
+              f"launches {c['nms_launches']} == {c['nms_launches_want']}; at min_score "
+              f"{min_scores} ({n_kept} kept rows) equal to the live detect_file "
+              f"({held_bits['bit_equal']} bit for bit, {held_bits['within_bar_only']} within "
+              f"the bar only) and to the live bucketed program bit for bit; TF32 forced on "
+              f"moves a score by {tf32_diff:.3g}, a box by {tf32_box:.3g} px, keeps "
+              f"{tf32_kept} rows, and breaks the bar; a "
+              f"{c['too_long']['n_windows']}-window file raises", flush=True)
+        print(f"cold start: load_model + first file {child['live']['cold_s']:.2f} s (load "
+              f"{child['live']['load_s']:.2f} s), ExportedDetector.load + first file "
+              f"{c['cold_s']:.2f} s (load {c['load_s']:.2f} s); processes "
+              f"{child['live']['wall_s']:.1f} / {c['wall_s']:.1f} s", flush=True)
+        p = c["profiled_exported"]
+        print(f"warm file, median of 5 in turns: exported {c['warm_median_ms']['exported']:.2f} "
+              f"ms, live {c['warm_median_ms']['live']:.2f} ms; profiled exported file wall "
+              f"{p['wall_ms']:.2f} ms, device {p['device_ms']:.2f} ms, idle share "
+              f"{p['idle_share']:.3f}, {p['kernel_launches']} kernel launches", flush=True)
+        out.update(min_scores=min_scores, kept_rows=n_kept, detections_held=held_bits,
+                   tf32_control=dict(within_bar=tf32_within, max_score_diff=tf32_diff,
+                                     max_box_diff=tf32_box, kept_rows=tf32_kept),
+                   children=child)
+
+        # ---- serve --exported over phase 8's files that fit the buckets ----
+        audio = os.path.join(tmp, "audio")
+        os.makedirs(os.path.join(audio, "sub"))
+        good = []
+        for i, sec in enumerate(EXPORT_SERVE_SECONDS):
+            good.append(os.path.join(audio, "sub" if i == 2 else "", f"night{i}.wav"))
+            write_wav(good[-1], sec, seed + 10 + i)
+        old = time.time() - 60
+        for path in good:
+            os.utime(path, (old, old))
+        def n_windows(path) -> int:
+            with wave.open(path) as w:
+                return num_windows(1 + w.getnframes() // fe_cfg.hop_length, fe_cfg.w_pix,
+                                   fe_cfg.hop_spectro)
+
+        windows = {p: n_windows(p) for p in good}
+        want = sum(2 * math.ceil(n / bs) + 1 for n in windows.values())
+        jsonl = os.path.join(tmp, "serve.jsonl")
+        torch.cuda.synchronize()
+        kern.launches = 0
+        t0 = time.perf_counter()
+        rc = serve_mod.main(["--exported", art, "--audio_dir", audio, "--once", "--settle", "0",
+                             "--min_score", "0.0", "--out", jsonl, "--device", "cuda"])
+        torch.cuda.synchronize()
+        serve_s, launches = time.perf_counter() - t0, kern.launches
+        check(rc == 0, f"serve --exported returned {rc}")
+        check(launches == want, f"serve --exported launched nms_in_order {launches} times, "
+                                f"want sum(2*ceil(n_windows/{bs}) + 1) = {want}")
+        with open(jsonl) as f:
+            recs = {r["file"]: r["detections"] for r in map(json.loads, f)}
+        check(sorted(recs) == sorted(good), f"serve --exported records: {sorted(recs)}")
+        serve_bits = {"bit_equal": 0, "within_bar_only": 0}
+        for path in good:
+            ref = species(pipe_mod.detect_file(
+                model, cfg, frontend.process(load_audio_raw(path, fe_cfg.sample_rate)), 0.0,
+                bs).cpu().numpy())
+            with open(path[:-4] + ".txt") as f:
+                txt = ast.literal_eval(f.read())
+            for what, got_sp in (("txt", txt), ("record", recs[path])):
+                same_detections(got_sp, ref, f"serve --exported {what} of "
+                                             f"{os.path.relpath(path, audio)}")
+                serve_bits["bit_equal" if got_sp == ref else "within_bar_only"] += 1
+        print(f"serve --exported: {len(good)} files ({sorted(windows.values())} windows) in "
+              f"{serve_s:.2f} s, nms_in_order launches {launches} == {want}; .txt and records "
+              f"against per-file detect_file: {serve_bits['bit_equal']} bit for bit, "
+              f"{serve_bits['within_bar_only']} within the bar only", flush=True)
+        out["serve_exported"] = dict(files=len(good), windows=sorted(windows.values()),
+                                     wall_s=serve_s, nms_launches=launches,
+                                     nms_launches_want=want, detections_held=serve_bits)
+
+        # ---- warm: the JAX package's (n_bucket, t_pad) pairs ----
+        seconds = (120.0, 600.0)
+        t0 = time.perf_counter()
+        pairs = export_mod.warm(model, cfg, bs, seconds, 0.0)
+        warm_s = time.perf_counter() - t0
+        want_pairs = []
+        for s in seconds:  # the JAX package's export.py:238-253, written out
+            total = max(fe_cfg.w_pix, int(round(s * fe_cfg.sample_rate / fe_cfg.hop_length)))
+            n_win = window_column_indices(total, fe_cfg.w_pix, fe_cfg.hop_spectro).shape[0]
+            n_chunks = 1 << (max(1, -(-n_win // bs)) - 1).bit_length()
+            want_pairs.append((n_chunks * bs, -(-total // 8192) * 8192))
+        check(pairs == want_pairs, f"warm returned {pairs}, want {want_pairs}")
+        print(f"warm {seconds} s: {pairs} in {warm_s:.2f} s", flush=True)
+        out["warm"] = dict(seconds=seconds, pairs=pairs, wall_s=warm_s)
+        del model
+
+    # ---- the operator's in-call time against the ctypes call ----
+    rng = np.random.default_rng(seed + 9)
+    op_times = {}
+    for name, b, n, thr in (("inference-proposal", 4, 500, 0.7), ("training-proposal", 2, 3000,
+                                                                  0.7)):
+        boxes = torch.from_numpy(random_boxes(rng, b, n)).to(dev)
+        nv = torch.full((b,), n, dtype=torch.int32, device=dev)
+        calls = {"operator": lambda: nms_mod.nms_op(boxes, nv, thr),
+                 "ctypes": lambda: nms_mod.nms_in_order(boxes, nv, thr)}
+        check(torch.equal(calls["operator"](), calls["ctypes"]()),
+              f"{name}: the operator and the ctypes call disagree")
+        times = {"operator": [], "ctypes": []}
+        for which in ("operator", "ctypes", "ctypes", "operator") * 10:
+            torch.cuda.synchronize()
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            calls[which]()
+            e.record()
+            e.synchronize()
+            times[which].append(s.elapsed_time(e))
+        op_times[name] = {k: float(np.median(v)) for k, v in times.items()}
+        # the operator captured into a CUDA graph (the device-time clock of
+        # phases 2-6 captures the wrapper): 20 calls, replayed, over 20
+        keep = calls["operator"]()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = [nms_mod.nms_op(boxes, nv, thr) for _ in range(20)]
+        graph.replay()
+        torch.cuda.synchronize()
+        check(all(torch.equal(c, keep) for c in captured),
+              f"{name}: the operator replayed from a CUDA graph disagrees")
+        replays = []
+        for _ in range(10):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            graph.replay()
+            e.record()
+            e.synchronize()
+            replays.append(s.elapsed_time(e) / 20)
+        op_times[name].update(shape=[b, n], thresh=thr, graph_device_ms=float(np.median(replays)))
+        del graph, captured
+        print(f"{name} B={b} N={n}: operator {op_times[name]['operator']:.4f} ms a call, ctypes "
+              f"{op_times[name]['ctypes']:.4f} ms (median of 20 each, in turns); the operator "
+              f"from a CUDA graph {op_times[name]['graph_device_ms']:.5f} ms on the device",
+              flush=True)
+    out["operator_in_call_ms"] = op_times
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1419,8 +1843,13 @@ def main() -> int:
     serving = serving_phase(args.seed, kern)
     phase_done(8)
     serving["folds"] = fold_stats
-    serving["phase_end_s"] = phase_end_s
     serving["card"] = card
+
+    # ---- 9. the export path at the flagship config ----
+    export = export_phase(args.seed, kern)
+    phase_done(9)
+    export["phase_end_s"] = phase_end_s
+    export["card"] = card
 
     bad = [m for m in sys.modules
            if m == "jax" or m.startswith("jax.") or m == "birdsoundclassif_tpu"
@@ -1450,9 +1879,13 @@ def main() -> int:
         "serve_launches": serving["serve_first_pass"]["nms_launches"],
         "serve_rewrite_launches": serving["serve_rewrite"]["nms_launches"],
         "sweep_launches": serving["sweep"]["nms_launches"],
+        "exported_file_launches": export["children"]["exported"]["nms_launches"],
+        "serve_exported_launches": export["serve_exported"]["nms_launches"],
+        "operator_in_call_ms": export["operator_in_call_ms"],
         "card": card,
     }]
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"export": export}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -25,6 +25,7 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import birdsoundclassif_tpu_torch.infer.pipeline\n"
         "import birdsoundclassif_tpu_torch.infer.serve\n"
         "import birdsoundclassif_tpu_torch.infer.sweep\n"
+        "import birdsoundclassif_tpu_torch.infer.export\n"
         "import birdsoundclassif_tpu_torch.models.optimize\n"
         "import birdsoundclassif_tpu_torch.audio.mp3\n"
         "import birdsoundclassif_tpu_torch.train.driver\n"
@@ -54,7 +55,8 @@ def test_sources_import_nothing_of_jax():
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         assert not pattern.findall(f.read())
     assert len(scanned) >= 20
-    assert {"models/optimize.py", "audio/mp3.py", "infer/serve.py", "infer/sweep.py"} <= scanned
+    assert {"models/optimize.py", "audio/mp3.py", "infer/serve.py", "infer/sweep.py",
+            "infer/export.py"} <= scanned
 
 
 def test_cli_raises_without_gpu_unless_device_cpu(tmp_path):
