@@ -45,12 +45,17 @@
 //     Two block barriers a chunk, none a pivot, no atomics.
 //  3. The mask does not depend on the decisions, so the scan has the rows
 //     of the next chunks copied into a ring of shared-memory buffers while
-//     it decides the current one: one TMA bulk copy a chunk
+//     it decides the current one: one TMA bulk copy a segment
 //     (cp.async.bulk) that completes a transaction barrier (mbarrier), out
 //     of L2, where the mask phase left the words. The tiles of one row
 //     tile lie together, diagonal first, so what a chunk needs is one
 //     contiguous run whatever n_valid is. No thread spends instructions or
-//     waits on the copy, and the trip to L2 is off the chain.
+//     waits on the copy, and the trip to L2 is off the chain. A chunk needs
+//     its diagonal tile alone to decide, and the tiles right of it only to
+//     OR the kept pivots' words into `removed`; so a row too long for two
+//     buffers of its whole run (N > 14,400) streams the run through the
+//     ring in segments of a fixed number of tiles, and shared memory holds
+//     N / 8 bytes of `removed` and a fixed ring whatever N is.
 //  4. Small rows (nms_fused_kernel): where one block is quick enough for
 //     all the compares of its row, one launch, one block a batch row, does
 //     both phases in shared memory and writes no mask to device memory.
@@ -76,7 +81,9 @@ constexpr int kPiece = 8;          // columns a thread of the mask kernel compar
 constexpr int kMaskThreads = kWord * (kWord / kPiece);  // 512: one 64x64 tile a block
 constexpr int kMaxSmem = 232448;   // 227 KB: the most one Hopper block may use
 constexpr int kFusedMaxN = 1024;   // the longest row nms_fused_launch takes
-constexpr int kMaxRing = 4;        // buffers of one chunk's tiles in the scan, at most
+constexpr int kMaxRing = 4;        // buffers of the scan's ring, at most
+constexpr int kMaxSegment = kThreads;  // tiles a buffer, at most: 16 warps OR at most 32
+                                       // words each in one go, one result a lane
 constexpr int kRounds = 12;        // rounds of the warp resolve before the serial walk
 constexpr int kMaxDevices = 64;
 constexpr unsigned kFullWarp = 0xffffffffu;
@@ -266,43 +273,46 @@ __device__ __forceinline__ u64 resolve_chunk(const u64* diag, u64 removed) {
   return resolve_serial(diag, removed);
 }
 
-// One step of the scan, run by the whole block: warp 0 resolves chunk c,
-// then each warp takes removed words to the right of the chunk and ORs the
-// kept pivots' words into them. tiles[(w - c) * 64 + r] is word w of the
-// chunk's pivot r: a word's 64 pivots lie together, so a warp reads them
-// as one row of 16-byte loads, two pivots a lane, and combines them with
-// two warp-wide ORs; one warp owns a removed word, so there are no atomics.
-// The caller puts a block barrier between two steps.
-__device__ __forceinline__ u64 scan_step(const u64* tiles, int c, int wn, u64* removed,
-                                         u64* kept_s) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  if (warp == 0) {
-    const u64 k = resolve_chunk(tiles, removed[c]);
-    if (lane == 0) *kept_s = k;
+// Warp 0 decides chunk c from its diagonal tile `diag` and the incoming
+// removed word; the whole block reads the result. The caller puts a block
+// barrier between two chunks.
+__device__ __forceinline__ u64 decide_chunk(const u64* diag, int c, const u64* removed,
+                                            u64* kept_s) {
+  if ((threadIdx.x >> 5) == 0) {
+    const u64 k = resolve_chunk(diag, removed[c]);
+    if (threadIdx.x == 0) *kept_s = k;
   }
   __syncthreads();
-  const u64 kept = *kept_s;
-  if (kept != 0ull) {
-    const unsigned mine = static_cast<unsigned>(kept >> (2 * lane)) & 3u;
-    const u64 on0 = 0ull - (mine & 1u), on1 = 0ull - ((mine >> 1) & 1u);
-    // The warp's k-th word is c + 1 + warp + k * nwarps; lane k keeps its
-    // result, and the removed words are written after the loop, so that no
-    // store stands between one word's loads and the next one's.
-    u64 result = 0;
-    int k = 0;
+  return *kept_s;
+}
+
+// ORs the kept pivots' words of one chunk into removed[w0 .. w1 - 1], run by
+// the whole block: tiles[(w - w0) * 64 + r] is word w of the chunk's pivot r.
+// A word's 64 pivots lie together, so a warp reads them as one row of
+// 16-byte loads, two pivots a lane, and combines them with two warp-wide
+// ORs; one warp owns a removed word, so there are no atomics. A dropped
+// pivot's word is ignored.
+__device__ __forceinline__ void or_kept_words(const u64* tiles, int w0, int w1, u64 kept,
+                                              u64* removed) {
+  if (kept == 0ull) return;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const unsigned mine = static_cast<unsigned>(kept >> (2 * lane)) & 3u;
+  const u64 on0 = 0ull - (mine & 1u), on1 = 0ull - ((mine >> 1) & 1u);
+  // The warp's k-th word is w0 + warp + k * nwarps; lane k keeps its
+  // result, and the removed words are written after the loop, so that no
+  // store stands between one word's loads and the next one's.
+  u64 result = 0;
+  int k = 0;
 #pragma unroll 4
-    for (int w = c + 1 + warp; w < wn; w += nwarps, ++k) {
-      const ulonglong2 v =
-          *reinterpret_cast<const ulonglong2*>(tiles + (w - c) * kWord + 2 * lane);
-      const u64 both = (v.x & on0) | (v.y & on1);
-      const unsigned lo = __reduce_or_sync(kFullWarp, static_cast<unsigned>(both));
-      const unsigned hi = __reduce_or_sync(kFullWarp, static_cast<unsigned>(both >> 32));
-      if (lane == k) result = (static_cast<u64>(hi) << 32) | lo;
-    }
-    // at most 225 words over 16 warps: k <= 15 < 32 lanes
-    if (lane < k && result != 0ull) removed[c + 1 + warp + lane * nwarps] |= result;
+  for (int w = w0 + warp; w < w1; w += nwarps, ++k) {
+    const ulonglong2 v = *reinterpret_cast<const ulonglong2*>(tiles + (w - w0) * kWord + 2 * lane);
+    const u64 both = (v.x & on0) | (v.y & on1);
+    const unsigned lo = __reduce_or_sync(kFullWarp, static_cast<unsigned>(both));
+    const unsigned hi = __reduce_or_sync(kFullWarp, static_cast<unsigned>(both >> 32));
+    if (lane == k) result = (static_cast<u64>(hi) << 32) | lo;
   }
-  return kept;
+  // at most kMaxSegment words over 16 warps: k <= 32 lanes
+  if (lane < k && result != 0ull) removed[w0 + warp + lane * nwarps] |= result;
 }
 
 __device__ __forceinline__ void write_keep_chunk(bool* out, int c, int n, u64 kept) {
@@ -395,16 +405,29 @@ __device__ __forceinline__ void mbar_wait(u64* bar, unsigned parity) {
   }
 }
 
-// Start the copy of the tiles chunk c needs, (c, c) .. (c, wn - 1), one
-// contiguous run in the scratch, into buf: one thread arms the barrier
-// with the byte count and hands the run to the copy engine (one TMA bulk
-// copy; bytes a multiple of 512, both addresses 512-byte aligned). No
-// thread waits on the way: the engine moves the bytes while the block
-// decides earlier chunks.
-__device__ __forceinline__ void prefetch_chunk(u64* buf, u64* bar, const u64* row_tiles,
-                                               int wmax, int c, int wn) {
-  const unsigned bytes = static_cast<unsigned>((wn - c) * kWord * sizeof(u64));
-  const u64* src = row_tiles + static_cast<size_t>(tile_index(c, c, wmax)) * kWord;
+// The scan's copies, in order: chunk c needs the tiles (c, c) .. (c, wn - 1),
+// one contiguous run in the scratch, diagonal first. The run is cut into
+// segments of at most `seg` tiles, and the segments of all chunks go one
+// after another through the ring. Segment (c, t) holds the tiles of words
+// t .. min(t + seg, wn) - 1; a chunk's first segment starts at t = c.
+struct Segment {
+  int c, t;
+  __device__ __forceinline__ void next(int wn, int seg) {
+    t += seg;
+    if (t >= wn) t = ++c;
+  }
+};
+
+// Start the copy of segment `s` into buf: one thread arms the barrier with
+// the byte count and hands the run to the copy engine (one TMA bulk copy;
+// bytes a multiple of 512, both addresses 16-byte aligned). No thread
+// waits on the way: the engine moves the bytes while the block decides
+// earlier chunks.
+__device__ __forceinline__ void prefetch_segment(u64* buf, u64* bar, const u64* row_tiles,
+                                                 int wmax, Segment s, int wn, int seg) {
+  const int tiles = min(wn, s.t + seg) - s.t;
+  const unsigned bytes = static_cast<unsigned>(tiles * kWord * sizeof(u64));
+  const u64* src = row_tiles + static_cast<size_t>(tile_index(s.c, s.t, wmax)) * kWord;
   mbar_arm(bar, bytes);
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
@@ -413,18 +436,39 @@ __device__ __forceinline__ void prefetch_chunk(u64* buf, u64* bar, const u64* ro
       : "memory");
 }
 
-// `ring` buffers of wmax tiles each (2 to kMaxRing, as many as the shared
-// memory holds), each with its barrier: the copies run ring - 1 chunks
-// ahead of the scan, because one trip to L2 and back takes longer than one
-// chunk's decisions.
+// The ring's place: `cur`, the buffer of the segment being read, in its
+// phase of the given parity (a buffer's k-th use is phase k); `fill`, the
+// buffer the segment ring - 1 places later goes to.
+struct RingPos {
+  int cur, fill, ring;
+  unsigned parity;
+  __device__ __forceinline__ void advance() {
+    fill = fill + 1 == ring ? 0 : fill + 1;
+    if (++cur == ring) {
+      cur = 0;
+      parity ^= 1u;
+    }
+  }
+};
+
+// `ring` buffers of `seg` tiles each (2 to kMaxRing buffers), each with its
+// barrier: the copies run ring - 1 segments ahead of the scan, because one
+// trip to L2 and back takes longer than one chunk's decisions. The launch
+// picks the plan (scan_plan below): where a whole row of tiles
+// fits twice (N <= 14,400), seg = wmax and a chunk is one segment
+// (kStream false: one copy, one wait and one barrier a chunk, no more);
+// longer rows take kMaxRing buffers of as many tiles as fit, so shared
+// memory no longer grows with N but for the removed bitset, N / 8 bytes
+// (kStream true: a chunk's first segment decides and ORs, the rest OR).
+template <bool kStream>
 __global__ void __launch_bounds__(kThreads)
-nms_scan_kernel(const u64* __restrict__ mask, const int* __restrict__ n_valid, int n, int ring,
-                bool* __restrict__ keep) {
+nms_scan_kernel(const u64* __restrict__ mask, const int* __restrict__ n_valid, int n, int seg,
+                int ring, bool* __restrict__ keep) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int wmax = words_of(n);
   u64* bufs = reinterpret_cast<u64*>(smem_raw);
-  const int buf_words = wmax * kWord;
-  u64* removed = bufs + ring * buf_words;
+  const int buf_words = seg * kWord;
+  u64* removed = bufs + static_cast<size_t>(ring) * buf_words;
   u64* kept_s = removed + wmax;
   u64* bars = kept_s + 1;
 
@@ -436,36 +480,45 @@ nms_scan_kernel(const u64* __restrict__ mask, const int* __restrict__ n_valid, i
 
   for (int w = threadIdx.x; w < wn; w += blockDim.x) removed[w] = initial_removed(w, nv);
   const int ahead = ring - 1;
-  if (threadIdx.x == 0) {
+  Segment fetch = {0, 0};  // the next segment to hand out: the copier's alone
+  if (threadIdx.x == kCopier) {
     for (int k = 0; k < ring; ++k) mbar_init(bars + k);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int c = 0; c < ahead && c < wn; ++c) {
-      prefetch_chunk(bufs + c * buf_words, bars + c, row_tiles, wmax, c, wn);
+    for (int k = 0; k < ahead && fetch.c < wn; ++k) {
+      prefetch_segment(bufs + k * buf_words, bars + k, row_tiles, wmax, fetch, wn, seg);
+      fetch.next(wn, seg);
     }
   }
   __syncthreads();
 
-  // cur: the buffer of chunk c, in its phase of the given parity (a
-  // buffer's k-th use is phase k); fill: the buffer chunk c + ahead goes to.
-  int cur = 0, fill = ahead;
-  unsigned parity = 0;
-  for (int c = 0; c < wn; ++c) {
-    // Every chunk that was handed out is waited for here, so no copy is in
-    // flight when the block ends. After the block barrier the removed words
-    // of step c-1 are complete and nobody reads chunk c-1's buffer any
-    // more: it takes chunk c + ahead.
-    mbar_wait(bars + cur, parity);
+  RingPos pos = {0, ahead, ring, 0u};
+  // Every segment that was handed out is waited for here, so no copy is in
+  // flight when the block ends. After the block barrier the removed words
+  // of the segment before are complete and nobody reads its buffer any
+  // more: it takes the next segment to hand out.
+  auto next_segment = [&]() -> const u64* {
+    mbar_wait(bars + pos.cur, pos.parity);
     __syncthreads();
-    if (threadIdx.x == kCopier && c + ahead < wn) {
-      prefetch_chunk(bufs + fill * buf_words, bars + fill, row_tiles, wmax, c + ahead, wn);
+    if (threadIdx.x == kCopier && fetch.c < wn) {
+      prefetch_segment(bufs + pos.fill * buf_words, bars + pos.fill, row_tiles, wmax, fetch, wn,
+                       seg);
+      fetch.next(wn, seg);
     }
-    const u64 kept = scan_step(bufs + cur * buf_words, c, wn, removed, kept_s);
+    return bufs + pos.cur * buf_words;
+  };
+  for (int c = 0; c < wn; ++c) {
+    const u64* tiles = next_segment();  // the diagonal tile comes first
+    const u64 kept = decide_chunk(tiles, c, removed, kept_s);
+    or_kept_words(tiles + kWord, c + 1, kStream ? min(wn, c + seg) : wn, kept, removed);
+    pos.advance();
+    if (kStream) {
+      for (int t = c + seg; t < wn; t += seg) {
+        tiles = next_segment();
+        or_kept_words(tiles, t, min(wn, t + seg), kept, removed);
+        pos.advance();
+      }
+    }
     write_keep_chunk(out, c, n, kept);
-    fill = fill + 1 == ring ? 0 : fill + 1;
-    if (++cur == ring) {
-      cur = 0;
-      parity ^= 1u;
-    }
   }
   write_keep_tail(out, wn, n);
 }
@@ -528,8 +581,9 @@ nms_fused_kernel(const float4* __restrict__ boxes, const int* __restrict__ n_val
   __syncthreads();
 
   for (int c = 0; c < wn; ++c) {
-    const u64 kept = scan_step(smask + static_cast<size_t>(tile_index(c, c, wmax)) * kWord, c, wn,
-                               removed, kept_s);
+    const u64* tiles = smask + static_cast<size_t>(tile_index(c, c, wmax)) * kWord;
+    const u64 kept = decide_chunk(tiles, c, removed, kept_s);
+    or_kept_words(tiles + kWord, c + 1, wn, kept, removed);
     write_keep_chunk(out, c, n, kept);
     __syncthreads();
   }
@@ -543,18 +597,36 @@ size_t fused_smem_bytes(int n) {
          rows * sizeof(float);
 }
 
-size_t scan_smem_bytes(int n, int ring) {
+size_t scan_smem_bytes(int n, int seg, int ring) {
   // the buffers, the removed words, the kept word, the barriers
   const size_t w = words_of(n);
-  return (ring * w * kWord + w + 1 + ring) * sizeof(u64);
+  return (static_cast<size_t>(ring) * seg * kWord + w + 1 + ring) * sizeof(u64);
 }
 
-// The most buffers that fit, up to kMaxRing; under 2 the row is too long
-// for the scan.
-int scan_ring(int n) {
-  int ring = kMaxRing;
-  while (ring >= 2 && scan_smem_bytes(n, ring) > static_cast<size_t>(kMaxSmem)) --ring;
-  return ring;
+// The scan's ring for rows of n boxes: `ring` buffers of `seg` tiles. Where
+// a whole row of tiles fits in at least two buffers (n <= 14,400), a buffer
+// holds it whole, with as many buffers as fit up to kMaxRing. A longer row
+// streams through kMaxRing buffers of as many tiles as fit beside the
+// removed bitset, which grows by n / 8 bytes: a tile a buffer still fits at
+// n = 1,842,880, far beyond the mask scratch the call needs first (212 GB
+// a row there). False when not even that fits.
+static_assert(kMaxSmem / (2 * kWord * sizeof(u64)) <= kMaxSegment,
+              "a buffer that fits twice in shared memory holds at most kMaxSegment tiles");
+bool scan_plan(int n, int* seg, int* ring) {
+  const int w = words_of(n);
+  for (int r = kMaxRing; r >= 2; --r) {
+    if (scan_smem_bytes(n, w, r) <= static_cast<size_t>(kMaxSmem)) {
+      *seg = w;
+      *ring = r;
+      return true;
+    }
+  }
+  const size_t fixed = scan_smem_bytes(n, 0, kMaxRing);
+  if (fixed >= static_cast<size_t>(kMaxSmem)) return false;
+  *seg = static_cast<int>((kMaxSmem - fixed) / (static_cast<size_t>(kMaxRing) * kWord *
+                                                sizeof(u64)));
+  *ring = kMaxRing;
+  return *seg >= 1;
 }
 
 // Raise a kernel's dynamic shared memory limit to the card's most, once a
@@ -604,19 +676,28 @@ int nms_mask_launch(const void* boxes, const void* n_valid, int batch, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Second of two launches: the chunked scan over the bitmask.
+// Second of two launches: the chunked scan over the bitmask, with the ring
+// scan_plan picks for n.
 int nms_scan_launch(const void* mask, const void* n_valid, int batch, int n, void* keep,
                     void* stream) {
-  static bool done[kMaxDevices] = {};
-  const int ring = scan_ring(n);
-  if (ring < 2) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = allow_max_smem(nms_scan_kernel, done);
+  static bool done[2][kMaxDevices] = {};
+  int seg = 0, ring = 0;
+  if (!scan_plan(n, &seg, &ring)) return static_cast<int>(cudaErrorInvalidValue);
+  // a whole row of tiles a buffer, or the row streamed in segments
+  const bool stream_row = seg < words_of(n);
+  auto kernel = stream_row ? &nms_scan_kernel<true> : &nms_scan_kernel<false>;
+  const cudaError_t err = allow_max_smem(kernel, done[stream_row]);
   if (err != cudaSuccess) return static_cast<int>(err);
-  nms_scan_kernel<<<batch, kThreads, scan_smem_bytes(n, ring),
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const u64*>(mask), static_cast<const int*>(n_valid), n, ring,
+  kernel<<<batch, kThreads, scan_smem_bytes(n, seg, ring), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const u64*>(mask), static_cast<const int*>(n_valid), n, seg, ring,
       static_cast<bool*>(keep));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The scan's plan for rows of n boxes, for reports: tiles a buffer and
+// buffers. Launches nothing; cudaErrorInvalidValue where no plan fits.
+int nms_scan_plan(int n, int* seg, int* ring) {
+  return scan_plan(n, seg, ring) ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

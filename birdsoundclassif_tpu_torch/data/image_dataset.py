@@ -1,13 +1,16 @@
 """Training image dataset, its augmentations and fixed-shape batches.
 
-Port of ``birdsoundclassif_tpu/data/image_dataset.py`` in host mode (the
-reference's Img_dataset, nbm_datasets/image_dataset.py:13-116): positive
+Port of ``birdsoundclassif_tpu/data/image_dataset.py`` (the reference's
+Img_dataset, nbm_datasets/image_dataset.py:13-116): positive
 PNG windows with box/id annotations, a random negative window a item, and
 the augmentation suite (additive noise scaled by the image's std, random
 gain, hard-negative mixing, a random Butterworth low-pass applied as a
 log-space column). The numpy Generator is drawn from in the JAX package's
 order and the files are listed the same way, so under the same seed an
-item is the JAX package's item bit for bit.
+item is the JAX package's item bit for bit. In device mode
+(``device_mode``, set by data/device_aug.py:build_banks) an item carries
+the uint8 window bytes or bank indices and the augmentation parameters,
+drawn as the JAX package draws them, and the device does the arithmetic.
 
 Without pandas, imageio or Pillow: ``annotations.csv`` (``;``-separated,
 columns index;coord;bird_id, Python-literal lists; JAX package:
@@ -59,14 +62,17 @@ class ImgDataset:
 
     An item is (img f32 (h, w), neg_img f32 (h, w), boxes (k, 4) f32,
     bird_ids (k,) int64), augmented when `transform` (reference semantics,
-    image_dataset.py:37-101). `rng` is shared with the split and the
-    loaders, as in the JAX driver."""
+    image_dataset.py:37-101), or in device mode (item dict, boxes, ids).
+    `rng` is shared with the split and the loaders, as in the JAX driver."""
 
     def __init__(self, dataset_path: str, transform: bool = False,
                  rng: Optional[np.random.Generator] = None):
         self.ds_p = dataset_path
         self.transform = transform
         self.rng = rng or np.random.default_rng()
+        self.device_mode = False
+        self.bank_positives = False
+        self.bank_negatives = False
 
         def collect(sub):
             files = []
@@ -88,9 +94,14 @@ class ImgDataset:
     def __len__(self) -> int:
         return len(self.positive_files)
 
-    def _load_png(self, sub: str, name: str) -> np.ndarray:
+    def load_png_u8(self, sub: str, name: str) -> np.ndarray:
+        """The window's uint8 bytes, as the PNG stores them (the wire format
+        of device mode)."""
         folder = "__".join(name.replace(".png", "").split("__")[:-1])
-        return read_png(os.path.join(self.ds_p, sub, folder, name)).astype(np.float32) / 255.0
+        return read_png(os.path.join(self.ds_p, sub, folder, name))
+
+    def _load_png(self, sub: str, name: str) -> np.ndarray:
+        return self.load_png_u8(sub, name).astype(np.float32) / 255.0
 
     def _boxes_for(self, idx: int):
         name = self.positive_files[idx]
@@ -105,7 +116,41 @@ class ImgDataset:
         keep = ids != 0
         return boxes.reshape(-1, 4)[keep], ids[keep]
 
+    def _device_item(self, idx: int):
+        """Device-mode item: uint8 bytes or bank indices and the drawn
+        augmentation parameters, from the same generator calls in the same
+        order as the JAX package's (image_dataset.py:109-141; flips[0]
+        gates hard mixing, flips[1] the Butterworth mask)."""
+        rng = self.rng
+        boxes, ids = self._boxes_for(idx)
+        item = {}
+        if self.bank_positives:
+            item["pos_idx"] = np.int32(idx)
+        else:
+            item["pos_u8"] = self.load_png_u8("positive_files", self.positive_files[idx])
+        neg_j = int(rng.integers(len(self.negative_files)))
+        if self.bank_negatives:
+            item["neg_idx"] = np.int32(neg_j)
+        else:
+            item["neg_u8"] = self.load_png_u8("negative_files", self.negative_files[neg_j])
+
+        t = self.transform
+        item["aug_use_noise"] = np.bool_(t)
+        item["aug_seed"] = np.uint32(rng.integers(1 << 31)) if t else np.uint32(0)
+        item["aug_gain"] = np.float32(rng.uniform(-0.1, 0.35)) if t else np.float32(0)
+        flips = rng.integers(0, 2, size=4) if t else np.zeros(4, np.int64)
+        use_hard = bool(flips[0] == 1 and self.hard_negative_files)
+        item["aug_use_hard"] = np.bool_(use_hard)
+        item["hard_idx"] = np.int32(rng.integers(len(self.hard_negative_files)) if use_hard else 0)
+        item["aug_hard_coef"] = np.float32(rng.uniform(0.1, 0.4) if use_hard else 0)
+        item["aug_neg_coef"] = np.float32(rng.uniform(0.5, 0.99) if use_hard else 0)
+        item["aug_use_butter"] = np.bool_(flips[1] == 1)
+        item["aug_cutoff"] = np.float32(rng.integers(500, 10000) if flips[1] == 1 else 1000.0)
+        return item, boxes, ids
+
     def __getitem__(self, idx: int):
+        if self.device_mode:
+            return self._device_item(idx)
         rng = self.rng
         img = self._load_png("positive_files", self.positive_files[idx])
         boxes, ids = self._boxes_for(idx)
@@ -136,16 +181,20 @@ class ImgDataset:
 
 
 def collate_batch(items: List, max_gt: int) -> Dict[str, np.ndarray]:
-    """Fixed-shape batch: the GT padded to max_gt with validity masks."""
+    """Fixed-shape batch: the GT padded to max_gt with validity masks. Takes
+    host-mode tuples and device-mode (dict, boxes, ids) items alike."""
     b = len(items)
-    batch = {
-        "img": np.stack([it[0] for it in items]),
-        "neg_img": np.stack([it[1] for it in items]),
-        "gt_boxes": np.zeros((b, max_gt, 4), np.float32),
-        "gt_valid": np.zeros((b, max_gt), bool),
-        "gt_labels": np.zeros((b, max_gt), np.int32),
-    }
-    for i, (_, _, boxes, ids) in enumerate(items):
+    if isinstance(items[0][0], dict):
+        batch = {k: np.stack([it[0][k] for it in items]) for k in items[0][0]}
+        gt = [(it[1], it[2]) for it in items]
+    else:
+        batch = {"img": np.stack([it[0] for it in items]),
+                 "neg_img": np.stack([it[1] for it in items])}
+        gt = [(it[2], it[3]) for it in items]
+    batch["gt_boxes"] = np.zeros((b, max_gt, 4), np.float32)
+    batch["gt_valid"] = np.zeros((b, max_gt), bool)
+    batch["gt_labels"] = np.zeros((b, max_gt), np.int32)
+    for i, (boxes, ids) in enumerate(gt):
         k = min(len(boxes), max_gt)
         batch["gt_boxes"][i, :k] = boxes[:k]
         batch["gt_valid"][i, :k] = True

@@ -7,6 +7,15 @@ the reference's state_dict keys, so a reference ``model_chkpt.pt`` loads
 directly. The conv stack (backbone, attention, FPN) runs in
 ``cfg.compute_dtype``; box geometry, NMS and the heads' outputs stay
 float32, as in the JAX package.
+
+With ``remat_backbone`` the training forward recomputes the trunk in the
+backward pass instead of keeping its activations (JAX package:
+detector.py:88-170; torch.utils.checkpoint, non-reentrant):
+``remat_granularity`` "stages" or "blocks" checkpoint each ResNet stage or
+each bottleneck, then the attention pyramid and the FPN apart; any other
+value ("trunk") one checkpoint around backbone, positional embeddings,
+attention and FPN. The RPN and the proposal layer, with its NMS, stay
+outside every checkpoint, so a recompute launches no NMS.
 """
 
 from __future__ import annotations
@@ -15,6 +24,7 @@ from typing import List, NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import nn as tnn
 from ..device import full_f32
@@ -83,17 +93,31 @@ class NbmModel(nn.Module):
         train(), the _eval ones in eval()). Proposals carry no gradient
         (reference: head.py:36-37)."""
         x = samples.to(self.compute_dtype)
-        backbone = self.backbone[0]
-        feats = backbone(x)
-        if self.cfg.add_posenc:
-            feats = [f + p for f, p in zip(feats, backbone.position_embeddings(feats))]
-        fpn_out = self.fpn(self.attn(feats))
+        remat = self.training and self.cfg.remat_backbone
+        if remat and self.cfg.remat_granularity in ("stages", "blocks"):
+            feats = self.backbone[0](x, self.cfg.remat_granularity)
+            feats = self._add_posenc(feats)
+            feats = checkpoint(self.attn, feats, use_reentrant=False)
+            fpn_out = checkpoint(self.fpn, feats, use_reentrant=False)
+        elif remat:
+            fpn_out = checkpoint(self._trunk, x, use_reentrant=False)
+        else:
+            fpn_out = self._trunk(x)
         cls_scores, bbox_reg = self.head.rpn(fpn_out)
         props: Proposals = proposal_layer(cls_scores.detach(), bbox_reg.detach(), self.cfg,
                                           training=self.training)
         return FirstStageOut(rois=props.rois, roi_scores=props.scores, roi_valid=props.valid,
                              rpn_ok=props.rpn_ok, rpn_cls_scores=cls_scores,
                              rpn_bbox_reg=bbox_reg, fpn_out=fpn_out)
+
+    def _add_posenc(self, feats: List[torch.Tensor]) -> List[torch.Tensor]:
+        if not self.cfg.add_posenc:
+            return feats
+        return [f + p for f, p in zip(feats, self.backbone[0].position_embeddings(feats))]
+
+    def _trunk(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """Backbone, positional embeddings, attention, FPN."""
+        return self.fpn(self.attn(self._add_posenc(self.backbone[0](x))))
 
     def forward_second_stage_train(self, fpn_out: List[torch.Tensor], rois: torch.Tensor):
         """RoI pool + RCNN head on `rois` (B, R, 4) -> (bbox_reg (B*R,

@@ -21,8 +21,9 @@ used here.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -154,31 +155,68 @@ class BatchNorm2d(_Norm):
 
     In ``eval()`` it normalises with the running statistics. In ``train()``
     it normalises with the batch's mean and biased variance over (N, H, W)
-    and updates the running statistics in place, with momentum 0.1 and the
-    unbiased variance, as torch's BatchNorm2d does. The JAX package returns
-    the new statistics and merges them after the optimizer update; the
-    values are the same as long as each norm runs once a step."""
+    and computes new running statistics (momentum 0.1, the unbiased
+    variance, as torch's BatchNorm2d), which it records in the collection
+    that ``recording_bn_updates`` hands it, keyed by the module, and never
+    writes itself: the JAX package's ``bn_updates``, which its trainer
+    merges after the optimizer update (train/loop.py). A module records
+    once a collection: a recompute under torch.utils.checkpoint runs the
+    forward again from the same running statistics and records nothing.
+    Outside a collection the new statistics are dropped, as the JAX
+    package drops them when no ``bn_updates`` is given.
+
+    ``reference_init`` draws the weight from N(0, 0.02) (the reference's
+    inverted bottlenecks); otherwise it starts at 1, as torchvision's
+    backbone norms do."""
 
     momentum = 0.1
 
-    def __init__(self, ch: int):
-        super().__init__(ch, reference_init=True, affine_params=True)
+    def __init__(self, ch: int, reference_init: bool = True):
+        super().__init__(ch, reference_init=reference_init, affine_params=True)
+        self.bn_updates: Optional[Dict["BatchNorm2d", Tuple[torch.Tensor, torch.Tensor]]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         if self.training:
             var, mean = torch.var_mean(x32, dim=(0, 2, 3), correction=0)
-            n = x.shape[0] * x.shape[2] * x.shape[3]
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
-                self.running_var.copy_((1 - m) * self.running_var
-                                       + m * (var * (n / max(1, n - 1))))
+            if self.bn_updates is not None and self not in self.bn_updates:
+                n = x.shape[0] * x.shape[2] * x.shape[3]
+                with torch.no_grad():
+                    m = self.momentum
+                    self.bn_updates[self] = (
+                        (1 - m) * self.running_mean + m * mean,
+                        (1 - m) * self.running_var + m * (var * (n / max(1, n - 1))))
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + BN_EPS) * self.weight
         y = (x32 - mean[:, None, None]) * inv[:, None, None]
         return (y + self.bias[:, None, None]).to(x.dtype)
+
+
+@contextlib.contextmanager
+def recording_bn_updates(model: nn.Module):
+    """Collect the new running statistics of every train-mode BatchNorm2d
+    of `model` while the block runs: yields a dict {module: (mean, var)},
+    filled by the forward passes inside the block (one entry a module: the
+    first forward's)."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    updates: Dict[BatchNorm2d, Tuple[torch.Tensor, torch.Tensor]] = {}
+    for m in norms:
+        m.bn_updates = updates
+    try:
+        yield updates
+    finally:
+        for m in norms:
+            m.bn_updates = None
+
+
+@torch.no_grad()
+def apply_bn_updates(updates: Dict[BatchNorm2d, Tuple[torch.Tensor, torch.Tensor]]) -> None:
+    """Write recorded statistics into their modules (JAX package:
+    train/loop.py:merge_bn_updates)."""
+    for m, (mean, var) in updates.items():
+        m.running_mean.copy_(mean)
+        m.running_var.copy_(var)
 
 
 def stem_corr_add(weight: torch.Tensor, y: torch.Tensor, x_shape, stride,

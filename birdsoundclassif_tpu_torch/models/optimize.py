@@ -16,7 +16,9 @@ left as it was and may still be trained; the folded copy may not (it is
 marked ``inference_folded`` and the trainer refuses it). The weights are
 cast to the compute dtype when a conv runs, on the folded float32 values,
 as the JAX package casts them. Only the backbone is folded; the live batch
-norms of the RPN and RCNN blocks stay.
+norms of the RPN and RCNN blocks stay. A live backbone norm
+(``norm_layer_backbone`` other than "frozen_batchnorm") folds the same way:
+at inference it is the same affine constant of its running statistics.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from torch import nn
 from . import nn as tnn
 from .backbone import RESNET_SPECS
 
-_ROADMAP_VARIANTS = "ROADMAP.md A'.8"
+_ROADMAP_VARIANTS = "ROADMAP.md A.3"
 
 
 def _check_foldable(cfg) -> None:
@@ -44,7 +46,7 @@ def _check_foldable(cfg) -> None:
 
 
 def _pairs(body: nn.Module) -> Iterator[Tuple[tnn.Conv2d, nn.Module, str]]:
-    """(conv, BN owner, BN name) of every conv + frozen BN pair of a ResNet
+    """(conv, BN owner, BN name) of every conv + BN pair of a ResNet
     body, in the JAX package's order (optimize.py:61-69)."""
     yield body.conv1, body, "bn1"
     for stage in range(1, 5):
@@ -59,9 +61,11 @@ def _param(t: torch.Tensor, like: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t.to(like.device), requires_grad=False)
 
 
-def _fold_pair(conv: tnn.Conv2d, bn: tnn.FrozenBatchNorm2d) -> None:
+@torch.no_grad()
+def _fold_pair(conv: tnn.Conv2d, bn: nn.Module) -> None:
     """optimize.py:_fold_pair, in float32 on the CPU: scale =
-    weight * rsqrt(var + eps); w * scale; b * scale + bias - mean * scale."""
+    weight * rsqrt(var + eps); w * scale; b * scale + bias - mean * scale.
+    `bn` is a frozen or a live backbone norm."""
     f32 = dict(device="cpu", dtype=torch.float32)
     scale = bn.weight.to(**f32) * torch.rsqrt(bn.running_var.to(**f32) + tnn.BN_EPS)
     w = conv.weight.detach().to(**f32)

@@ -24,6 +24,7 @@ kernel's algorithm (suppression bitmask in 64-bit words, scan in chunks of
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -39,6 +40,8 @@ NMS_KERNEL = CudaKernel(
         "nms_mask_launch": [_PTR, _PTR, _INT, _INT, ctypes.c_float, _PTR, _PTR],
         # mask, n_valid, batch, n, keep, stream
         "nms_scan_launch": [_PTR, _PTR, _INT, _INT, _PTR, _PTR],
+        # n, seg (out), ring (out): the scan's plan, launches nothing
+        "nms_scan_plan": [_INT, ctypes.POINTER(_INT), ctypes.POINTER(_INT)],
     },
 )
 
@@ -52,13 +55,6 @@ NMS_WORD = 64  # pivots a chunk of the scan, columns a word of the bitmask
 # are the faster way from 128 boxes on (5.4 against 9.0 microseconds at
 # B=4, N=128; 4.9 against 4.2 at N=64; scripts/torch_nms_bench.py sweeps it).
 NMS_ONE_LAUNCH_MAX_N = 64
-
-# Largest row of the two-launch path: the scan keeps at least two buffers of
-# one chunk's mask tiles (N/64 tiles of 512 bytes each; the asynchronous
-# copies fill one while the other is read) and the removed bitset in shared
-# memory: (129 * N/64 + 3) words of 8 bytes within the 227 KB (232,448
-# bytes) a Hopper block may use, so N/64 <= 225.
-NMS_KERNEL_MAX_N = 225 * NMS_WORD
 
 
 def nms_mask_words(n: int) -> int:
@@ -75,13 +71,28 @@ def _check_launch(err: int, what: str) -> None:
         raise RuntimeError(f"nms_in_order: {what} launch failed with CUDA error {err}")
 
 
+def nms_scan_plan(n: int) -> Tuple[int, int]:
+    """(tiles a buffer, buffers) of the scan's ring of shared memory for
+    rows of n boxes, as its launch picks them (csrc/nms_in_order.cu:
+    scan_plan): a whole row of mask tiles a buffer up to n = 14,400, a row
+    streamed in segments beyond. For reports; builds the kernel's library
+    and launches nothing."""
+    seg, ring = _INT(), _INT()
+    if NMS_KERNEL.call("nms_scan_plan", n, ctypes.byref(seg), ctypes.byref(ring)) != 0:
+        raise ValueError(f"nms_in_order: no scan plan fits a row of {n} boxes")
+    return seg.value, ring.value
+
+
 def nms_in_order(boxes: torch.Tensor, n_valid: torch.Tensor, iou_thresh: float) -> torch.Tensor:
     """CUDA kernel: keep (B, N) bool for boxes (B, N, 4) float32 already in
     greedy order with the n_valid[b] (int32) valid entries first. Launches
     on the current stream and does not synchronise. One call counts as one
     launch in ``NMS_KERNEL.launches``, whether it took one kernel (rows up
-    to NMS_ONE_LAUNCH_MAX_N) or two (bitmask, then scan). The operator's
-    CUDA implementation; the main paths reach it through the operator."""
+    to NMS_ONE_LAUNCH_MAX_N) or two (bitmask, then scan). Rows of any
+    length: the bound is the bitmask scratch of the two-launch path,
+    ``nms_mask_words(N)`` 64-bit words a row, allocated with torch.empty
+    (33 MB a row at N = 23,040, 133 MB at N = 46,080). The operator's CUDA
+    implementation; the main paths reach it through the operator."""
     if boxes.device.type != "cuda" or n_valid.device != boxes.device:
         raise ValueError("nms_in_order takes CUDA tensors on one device")
     if boxes.dtype != torch.float32 or n_valid.dtype != torch.int32:
@@ -97,8 +108,6 @@ def nms_in_order(boxes: torch.Tensor, n_valid: torch.Tensor, iou_thresh: float) 
     if not (boxes.is_contiguous() and n_valid.is_contiguous()) or boxes.data_ptr() % 16:
         raise ValueError("nms_in_order takes contiguous, 16-byte aligned tensors")
     b, n, _ = boxes.shape
-    if n > NMS_KERNEL_MAX_N:
-        raise ValueError(f"nms_in_order holds at most {NMS_KERNEL_MAX_N} boxes a row, got {n}")
     if b > 65_535:
         raise ValueError(f"nms_in_order takes at most 65,535 rows a call, got {b}")
     keep = torch.empty((b, n), dtype=torch.bool, device=boxes.device)

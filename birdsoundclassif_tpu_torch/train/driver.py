@@ -11,11 +11,13 @@ best / last checkpoints.
 
 One flag per NbmConfig field (unknown flags are rejected), plus
 ``--device``: a runtime flag kept out of NbmConfig, ``cuda`` unless
-``cpu`` is given; without a card the default raises. Not ported yet, and
-refused: the mesh and multi-host flags, remat_backbone,
-grad_accum_steps > 1, device_augment, and the test-set AP pass (it needs
-eval/ap.py; the driver says so once and goes on). Metrics go to
-``metrics.jsonl``.
+``cpu`` is given; without a card the default raises. The JAX package's
+production recipe (scripts/train_hard.py: --device_augment true
+--remat_backbone true --remat_granularity stages --grad_accum_steps 4)
+runs as it is; with --device_augment the sample banks are built after the
+dataset and serve training and validation. Not ported yet: the mesh and
+multi-host flags (refused), and the test-set AP pass (it needs eval/ap.py;
+the driver says so once and goes on). Metrics go to ``metrics.jsonl``.
 """
 
 from __future__ import annotations
@@ -32,12 +34,13 @@ import numpy as np
 import torch
 
 from ..config import NbmConfig
+from ..data.device_aug import build_banks
 from ..data.image_dataset import BatchLoader, ImgDataset
 from ..device import resolve_device
 from ..models import weights
 from ..models.detector import NbmModel
 from ..utils.checkpoint import atomic_savez, load_opt_state, save_opt_state, save_params
-from .loop import LOSS_KEYS, Trainer, check_training_config, make_lr_schedule
+from .loop import LOSS_KEYS, Trainer, make_lr_schedule
 
 # runtime flags of the JAX driver that need more than one device
 UNPORTED_FLAGS = ("--data_parallel", "--model_parallel", "--distributed", "--coordinator",
@@ -157,12 +160,21 @@ def load_checkpoint(out_dir, label, trainer):
     return meta, split
 
 
+# device-mode fields that only seed the noise generators: they stay on the
+# host, so that seeding them makes the host wait for nothing
+HOST_FIELDS = ("aug_seed",)
+
+
 def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device,
                     transfer_dtype: str = "float32") -> Dict[str, torch.Tensor]:
-    """Host batch -> tensors on `device`. batch_transfer_dtype casts only
-    the images; the model casts them to compute_dtype on the device."""
+    """Host batch -> tensors on `device` (HOST_FIELDS as int64 tensors on
+    the host). batch_transfer_dtype casts only the images; the model casts
+    them to compute_dtype on the device."""
     out = {}
     for k, v in batch.items():
+        if k in HOST_FIELDS:
+            out[k] = torch.from_numpy(v.astype(np.int64))
+            continue
         t = torch.from_numpy(v)
         if k in ("img", "neg_img") and transfer_dtype != "float32":
             t = t.to(getattr(torch, transfer_dtype))
@@ -180,7 +192,9 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     cfg = NbmConfig(**{f.name: getattr(args, f.name)
                        for f in dataclasses.fields(NbmConfig) if f.name != "device"})
-    check_training_config(cfg)
+    if cfg.batch_size % cfg.grad_accum_steps:
+        raise SystemExit(f"batch_size {cfg.batch_size} not divisible by "
+                         f"grad_accum_steps {cfg.grad_accum_steps}")
     device = resolve_device(args.device)
 
     save_dir = os.path.join(cfg.save_dir, cfg.model_name)
@@ -192,8 +206,17 @@ def main(argv=None) -> int:
     if len(dataset) == 0:
         raise SystemExit(f"no positive files under {cfg.data_path}")
 
+    banks = None
+    if cfg.device_augment:
+        t_bank = time.time()
+        banks = build_banks(dataset, cfg, device)  # also puts the dataset in device mode
+        mb = sum(b.nbytes for b in banks if b is not None) / 1e6
+        print(f"device_augment: banks pos={dataset.bank_positives} "
+              f"neg={dataset.bank_negatives} ({mb:.0f} MB on device, "
+              f"built in {time.time() - t_bank:.0f}s)")
+
     model = NbmModel(cfg).init_weights(torch.Generator().manual_seed(cfg.seed)).to(device)
-    trainer = Trainer(model, cfg)
+    trainer = Trainer(model, cfg, banks)
 
     epoch, best_val_cls_loss = 0, 99.0
     # meta.json is the save protocol's commit marker (written last): a

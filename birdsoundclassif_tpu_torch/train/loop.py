@@ -10,10 +10,24 @@ branched.
 Freezing follows the JAX package's ``freeze_mask`` (loop.py:58-102): the
 frozen batch norms and every running statistic are buffers, so they have
 no gradient and never reach the optimizer, and lr_backbone <= 0 takes the
-whole backbone out of it. The live batch norms update their running
-statistics inside the forward, which the JAX package merges after the
-update: the same values, since each norm runs once a step. Validation
-never runs in train mode.
+whole backbone out of it (a live backbone norm's weight and bias too;
+its running statistics still follow the batches, as in JAX).
+
+The production recipe's options (JAX package: loop.py:196-266):
+- ``grad_accum_steps`` A > 1 splits the batch into A microbatches along
+  dim 0, runs forward and backward on each, and hands the optimizer the
+  sum of their gradients over A; the losses are the microbatches' mean.
+- The live batch norms record their new running statistics instead of
+  writing them (models/nn.py:recording_bn_updates), one collection a
+  microbatch, all from the same starting statistics; after the optimizer
+  update each norm takes the mean over the microbatches (JAX's mean of
+  the scanned ``bn_updates``), not A updates one after another.
+- ``remat_backbone`` recomputes the trunk in the backward pass
+  (models/detector.py); a recompute records no statistics.
+- ``device_augment`` assembles the image on the device from uint8 banks
+  or bytes and the host-drawn parameters (data/device_aug.py), in
+  ``train_step`` and ``eval_step`` alike.
+Validation never runs in train mode.
 """
 
 from __future__ import annotations
@@ -23,31 +37,15 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..data.device_aug import AugBanks, assemble_image
 from ..device import full_f32
+from ..models.nn import apply_bn_updates, recording_bn_updates
 from .targets import AnchorTargetLayer, proposal_target_layer
 from . import losses as L
 
 LOSS_KEYS = ["first_class_loss", "first_regression_loss", "sec_class_loss",
              "sec_regression_loss", "first_neg_class_loss", "sec_neg_class_loss",
              "cardinality_error"]
-
-# training options of the JAX package that the port does not have yet
-UNPORTED_TRAINING = {
-    "remat_backbone": lambda cfg: bool(cfg.remat_backbone),
-    "grad_accum_steps": lambda cfg: cfg.grad_accum_steps > 1,
-    "device_augment": lambda cfg: bool(cfg.device_augment),
-    "norm_layer_backbone": lambda cfg: cfg.norm_layer_backbone != "frozen_batchnorm",
-}
-
-
-def check_training_config(cfg) -> None:
-    bad = [name for name, test in UNPORTED_TRAINING.items() if test(cfg)]
-    if bad:
-        raise ValueError(
-            "training options not ported yet: "
-            + ", ".join(f"{name}={getattr(cfg, name)!r}" for name in bad)
-        )
-
 
 def _pow_f32(x: float, k: int) -> np.float32:
     """x**k in float32 by binary exponentiation, the multiplication order
@@ -79,19 +77,24 @@ class Trainer:
 
     ``train_step`` and ``eval_step`` take a batch of tensors on the model's
     device: img and neg_img (B, H, W), gt_boxes (B, G, 4), gt_valid (B, G),
-    gt_labels (B, G). They return the losses as 0-d tensors on the device,
-    without waiting for them. The target layers' uniforms come from
-    `generator` (a torch.Generator on the model's device), or are given to
-    ``train_step`` as ``{"atl": (B, 2, K_in), "ptl": (B, 3, N + G)}``.
+    gt_labels (B, G); with ``device_augment``, the fields of
+    data/device_aug.py:assemble_image in place of img and neg_img (and, if
+    given, ``aug_noise`` (B, H, W) in place of the drawn noise), and
+    `banks` (AugBanks) given here. They return the losses as 0-d tensors on
+    the device, without waiting for them. The target layers' uniforms come
+    from `generator` (a torch.Generator on the model's device), or are
+    given to ``train_step`` as ``{"atl": (b, 2, K_in), "ptl": (b, 3, N +
+    G)}``, b = B / grad_accum_steps: one dict, or with grad_accum_steps > 1
+    a sequence of one dict a microbatch.
     """
 
-    def __init__(self, model, cfg):
-        check_training_config(cfg)
+    def __init__(self, model, cfg, banks: Optional[AugBanks] = None):
         if getattr(model, "inference_folded", False):
             raise ValueError("the model carries the inference folds (models/optimize.py): "
                              "train the unfolded model")
         self.model = model
         self.cfg = cfg
+        self.banks = banks
         self.device = next(model.parameters()).device
         self.atl = AnchorTargetLayer(cfg, self.device)
         self.weights = L.weight_dict(cfg)
@@ -125,7 +128,10 @@ class Trainer:
         """The proposal layer's top-N follows the model's train()/eval()."""
         cfg, model = self.cfg, self.model
         uniforms = uniforms or {}
-        img = batch["neg_img"] if negative_sample else batch["img"]
+        if cfg.device_augment:
+            img = assemble_image(batch, self.banks, negative_sample, noise=batch.get("aug_noise"))
+        else:
+            img = batch["neg_img"] if negative_sample else batch["img"]
         out1 = model.forward_first_stage(img[:, None])
         losses: Dict[str, torch.Tensor] = {}
         rpn_ok = out1.rpn_ok.float()
@@ -163,22 +169,51 @@ class Trainer:
         torch._foreach_div_(grads, torch.where(under, one, norm))
         torch._foreach_mul_(grads, torch.where(under, one, torch.full_like(norm, max_norm)))
 
+    def _microbatches(self, batch: Dict[str, torch.Tensor], uniforms) -> List[tuple]:
+        """[(microbatch, its uniforms)]: the batch cut along dim 0 into
+        grad_accum_steps equal parts, in order."""
+        a = self.cfg.grad_accum_steps
+        if a == 1:
+            return [(batch, uniforms)]
+        b = next(iter(batch.values())).shape[0]
+        if b % a:
+            raise ValueError(f"batch of {b} does not split into grad_accum_steps={a} "
+                             f"microbatches")
+        if uniforms is not None and len(uniforms) != a:
+            raise ValueError(f"uniforms for {len(uniforms)} microbatches, want {a}")
+        m = b // a
+        return [({k: v[i * m:(i + 1) * m] for k, v in batch.items()},
+                 None if uniforms is None else uniforms[i]) for i in range(a)]
+
     def train_step(self, batch: Dict[str, torch.Tensor], negative_sample: bool = False,
                    generator: Optional[torch.Generator] = None,
-                   uniforms: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
-        """One optimizer update; returns the losses and "total"."""
+                   uniforms=None) -> Dict[str, torch.Tensor]:
+        """One optimizer update; returns the losses and "total" (means
+        over the microbatches)."""
         self.model.train()
         for group in self.optimizer.param_groups:
             group["lr"] = make_lr_schedule(group["base_lr"], self.cfg.lr_drop)(self.steps)
         self.optimizer.zero_grad(set_to_none=False)
+        micro = self._microbatches(batch, uniforms)
+        step_losses, step_bn = [], []
         with full_f32():
-            total, losses = self.compute_losses(batch, negative_sample, generator, uniforms)
-            total.backward()
+            for mb, mb_uniforms in micro:
+                with recording_bn_updates(self.model) as bn:
+                    total, losses = self.compute_losses(mb, negative_sample, generator,
+                                                        mb_uniforms)
+                    total.backward()  # .grad sums the microbatches
+                losses["total"] = total.detach()
+                step_losses.append(losses)
+                step_bn.append(bn)
+            if len(micro) > 1:
+                torch._foreach_div_([p.grad for p in self.params], float(len(micro)))
             self._clip()
             self.optimizer.step()
+            apply_bn_updates(_mean_updates(step_bn))
         self.steps += 1
-        losses["total"] = total.detach()
-        return {k: v.detach() for k, v in losses.items()}
+        return {k: torch.stack([l[k].detach() for l in step_losses]).mean(0)
+                if len(step_losses) > 1 else step_losses[0][k].detach()
+                for k in step_losses[0]}
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor], negative_sample: bool = False,
@@ -190,3 +225,11 @@ class Trainer:
         with full_f32():
             _, losses = self.compute_losses(batch, negative_sample, generator)
         return losses
+
+
+def _mean_updates(per_micro: List[dict]) -> dict:
+    """Each norm's statistics, the mean over the microbatches' records."""
+    if len(per_micro) == 1:
+        return per_micro[0]
+    return {m: tuple(torch.stack([u[m][i] for u in per_micro]).mean(0) for i in (0, 1))
+            for m in per_micro[0]}

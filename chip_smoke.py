@@ -11,16 +11,20 @@ port's sources, and nothing of the JAX package. Phases, in order:
   2. Kernel phase: the kernel against its plain PyTorch version on the card
      at the main path's shapes (B=4 N=500 thresh 0.7, B=4 N=50 thresh 0.3,
      B=1 N=8192 thresh 0.3 full and partial), at the training shape (B=2
-     N=3000 thresh 0.7), at edge shapes around the 64-bit words and the
+     N=3000 thresh 0.7), at the recipe's shapes (phase 10: a microbatch,
+     B=4 N=3000, and validation, B=32 N=500, thresh 0.7), at edge shapes around the 64-bit words and the
      switch between the one-launch and the two-launch path (rows of one
      batch with n_valid 0, 1, 64, 65 and N), at the scan's worst cases
      (disjoint boxes, one dense cluster, a chain of boxes each dropping the
-     next) and at IoU ties; keep masks must be equal, and the same launch
+     next), at rows past 14,400 boxes (N = 14,401, 16,384 and 23,040, full
+     and partial prefixes; the plain version timed once there) and at IoU
+     ties; keep masks must be equal, and the same launch
      twice must give the same mask, with the allocator's free blocks
-     poisoned first so that a read of uninitialised scratch shows. Times of
-     both: median of 20 calls between CUDA events (the host's time to
-     enqueue the call included), and the kernel's device time from a CUDA
-     graph of 20 calls (host excluded).
+     poisoned first so that a read of uninitialised scratch shows. Times:
+     the kernel's median of 20 calls between CUDA events (the host's time
+     to enqueue the call included) and its device time from a CUDA graph
+     of 20 calls (host excluded); the plain version's one call after a
+     warm-up.
   3. Main path: a random-weight checkpoint (args + model_chkpt.pt) at the
      flagship NbmConfig() (ResNet-50, 150 classes, 375x1024, bf16), a
      synthetic 120 s PCM16 wav, and the port's CLI on cuda with
@@ -64,7 +68,18 @@ port's sources, and nothing of the JAX package. Phases, in order:
      keep masks equal wherever the two sides' boxes are equal. Then three
      controls, the card step with a fault put in: TF32 on (read only), one
      tensor's gradient zeroed (must exceed PARAM_MEAN_TOL), the same
-     tensor's gradient scaled by 0.9 (must exceed MU_TOL there).
+     tensor's gradient scaled by 0.9 (must exceed MU_TOL there). The same
+     again for one positive step of the production recipe at batch 4
+     (grad_accum_steps 2, remat "stages", device augmentation with the
+     noise fed in, live backbone norms at lr_backbone 0), with one
+     proposal NMS a microbatch, the assembled images within ASSEMBLE_TOL
+     and the running statistics within RECIPE_RUNNING_TOL, which the
+     microbatches' statistics applied in turn (a fourth control) must
+     exceed. Then on the card alone, a live trained backbone with 2
+     microbatches: remat "stages" against none, losses within
+     REMAT_LOSS_TOL and running statistics within REMAT_RUNNING_TOL, which
+     statistics written twice (what an in-place update and a recompute
+     would leave) must exceed.
   8. Serving at the flagship config on cuda: a folder of six synthetic
      wavs of 20-240 s (one in a subfolder), a corrupt and an empty one,
      through the watch-folder service (infer/serve.py, --once, settle 0):
@@ -101,9 +116,22 @@ port's sources, and nothing of the JAX package. Phases, in order:
      package's formula, and the operator's in-call time against the
      ctypes call at B=4 N=500 and B=2 N=3000.
 
+ 10. The JAX package's production recipe (scripts/train_hard.py's flags:
+     batch 16, grad_accum_steps 4, remat "stages", device augmentation
+     from banks on the card, bf16 transfer) at the flagship config through
+     the port's driver, on a dataset of 64 positive windows written as in
+     phase 6: 7 steps (steps 2, 4 and 6 negative), one validation pass, a
+     2-step resume (step 8 negative). Exactly 4 proposal-NMS launches a
+     step (one a microbatch) and 2 for the validation pass; warm positive
+     and negative steps (the first step and the first negative step, which
+     choose their convolutions, apart), peak memory, one profiled positive
+     step (device busy, idle share) and the banks' MB. Then the trainer on one batch of 16 with each remat mode
+     (none, trunk, stages, blocks) in turns: peak memory and step time;
+     "stages" must peak below "none".
+
 The lines before the last are {"training": ...}, {"training_reference":
-...}, {"serving": {...}}, {"export": {...}} and {"kernels": [...]}, the
-last {"ok": true, "device": {...}}. Any failed check exits non-zero
+...}, {"serving": {...}}, {"export": {...}}, {"recipe": {...}} and
+{"kernels": [...]}, the last {"ok": true, "device": {...}}. Any failed check exits non-zero
 before they are printed.
 """
 
@@ -381,6 +409,47 @@ def write_training_dataset(root: str, spec: np.ndarray, cols: np.ndarray, noise_
     return len(rows), n_boxes
 
 
+def _tiny_training_cfg(**kw):
+    from birdsoundclassif_tpu_torch.config import NbmConfig
+
+    tiny = NbmConfig()
+    tiny.num_classes, tiny.out_fpn_chan, tiny.fpn_p_chan, tiny.depth_rcnn = 6, 16, 24, 1
+    tiny.img_height, tiny.img_width = 128, 256
+    tiny.pre_nms_topN, tiny.post_nms_topN, tiny.max_gt_boxes = 256, 64, 4
+    tiny.compute_dtype = "float32"
+    for k, v in kw.items():
+        setattr(tiny, k, v)
+    return tiny
+
+
+def _tiny_training_batch(rng, b: int, recipe: bool):
+    """A host batch of the tiny config: float images, or with `recipe` the
+    device-augmentation fields (bank indices, drawn parameters and the
+    noise itself, so that both sides assemble the same image) and the
+    uint8 pools."""
+    gt = np.zeros((b, 4, 4), np.float32)
+    gt[:, 0], gt[:, 1] = [30, 20, 120, 60], [140, 30, 200, 90]
+    batch = {"gt_boxes": gt, "gt_valid": np.array([[1, 1, 0, 0]] * b, bool),
+             "gt_labels": np.array([[3, 5, 0, 0]] * b, np.int32)}
+    if not recipe:
+        batch.update(img=rng.random((b, 128, 256), dtype=np.float32),
+                     neg_img=rng.random((b, 128, 256), dtype=np.float32))
+        return batch, None
+    pools = tuple(rng.integers(0, 256, (k, 128, 256)).astype(np.uint8) for k in (b, b, 2))
+    batch.update(pos_idx=np.arange(b, dtype=np.int32),
+                 neg_idx=rng.permutation(b).astype(np.int32),
+                 hard_idx=rng.integers(0, 2, b).astype(np.int32),
+                 aug_use_noise=np.ones(b, bool),
+                 aug_gain=rng.uniform(-0.1, 0.35, b).astype(np.float32),
+                 aug_use_hard=np.arange(b) % 2 == 0,
+                 aug_hard_coef=rng.uniform(0.1, 0.4, b).astype(np.float32),
+                 aug_neg_coef=rng.uniform(0.5, 0.99, b).astype(np.float32),
+                 aug_use_butter=np.arange(b) % 3 != 2,
+                 aug_cutoff=rng.integers(500, 10000, b).astype(np.float32),
+                 aug_noise=rng.standard_normal((b, 128, 256)).astype(np.float32))
+    return batch, pools
+
+
 def training_reference_check(seed: int) -> dict:
     """Phase 7: one positive and one negative step of the tiny float32
     config on the CPU and on the card from the same weights, batch and
@@ -388,36 +457,80 @@ def training_reference_check(seed: int) -> dict:
     three times with a fault put in on purpose (TF32 on; one tensor's
     gradient zeroed; the same tensor's gradient scaled by 0.9), read with
     the same measures, so the record shows where a wrong step lands
-    against the limits. Returns the readings."""
+    against the limits. Twice: the default config at batch 2, and one
+    positive step of the production recipe at batch 4 (grad_accum_steps 2,
+    remat "stages", device augmentation with the noise fed in, live batch
+    norms in the backbone, which lr_backbone 0 keeps out of the optimizer:
+    their training gradients at this size are float32 noise, see
+    tests/test_torch_train_recipe.py), with the negative image assembled
+    on both sides beside it and a fourth control, the microbatches' batch
+    norm statistics applied in turn instead of averaged. Then, on the card
+    alone, remat against none.
+    Returns the readings."""
+    out = {"default": _reference_case(seed, _tiny_training_cfg(), 2, False)}
+    out["recipe"] = _reference_case(
+        seed, _tiny_training_cfg(grad_accum_steps=2, remat_backbone=True,
+                                 remat_granularity="stages", device_augment=True,
+                                 norm_layer_backbone="batchnorm", lr_backbone=0.0), 4, True)
+    out["remat"] = remat_reference_check(seed)
+    return out
+
+
+# the image assembled on the CPU and on the card from the same uint8 pools,
+# parameters and noise (float32; the two round log10 and division alike to
+# an ulp or two: tests/test_torch_device_aug.py holds the port to JAX at it)
+ASSEMBLE_TOL = 2e-5
+# The recipe step's running statistics (every norm is live there), CPU vs
+# card, worst difference over the tensor's largest magnitude: the means over
+# the microbatches of what each computed from the same starting statistics.
+# CPU vs H100 reads 3.5e-5 (cuDNN's convolutions round otherwise than
+# oneDNN's through the 53 backbone norms). The control, the microbatches'
+# records applied one after another as torch's in-place update would,
+# reads 0.90 on the CPU and must exceed it.
+RECIPE_RUNNING_TOL = 1e-3
+
+
+def _reference_case(seed: int, tiny, b: int, recipe: bool) -> dict:
     import torch
 
-    from birdsoundclassif_tpu_torch.config import NbmConfig
+    from birdsoundclassif_tpu_torch.data.device_aug import AugBanks, assemble_image
+    from birdsoundclassif_tpu_torch.models import nn as nn_mod
     from birdsoundclassif_tpu_torch.models import rpn as rpn_mod
     from birdsoundclassif_tpu_torch.models.detector import NbmModel
     from birdsoundclassif_tpu_torch.train import loop as loop_mod
 
-    tiny = NbmConfig()
-    tiny.num_classes, tiny.out_fpn_chan, tiny.fpn_p_chan, tiny.depth_rcnn = 6, 16, 24, 1
-    tiny.img_height, tiny.img_width = 128, 256
-    tiny.pre_nms_topN, tiny.post_nms_topN, tiny.max_gt_boxes = 256, 64, 4
-    tiny.compute_dtype = "float32"
+    name = "recipe" if recipe else "default"
     rng = np.random.default_rng(seed)
-    gt = np.zeros((2, 4, 4), np.float32)
-    gt[:, 0], gt[:, 1] = [30, 20, 120, 60], [140, 30, 200, 90]
-    host_batch = {"img": rng.random((2, 128, 256), dtype=np.float32),
-                  "neg_img": rng.random((2, 128, 256), dtype=np.float32), "gt_boxes": gt,
-                  "gt_valid": np.array([[1, 1, 0, 0]] * 2, bool),
-                  "gt_labels": np.array([[3, 5, 0, 0]] * 2, np.int32)}
+    host_batch, pools = _tiny_training_batch(rng, b, recipe)
     gen = torch.Generator().manual_seed(seed)
     real_prefix, real_f32 = rpn_mod.greedy_nms_prefix, loop_mod.full_f32
-    uniforms = {}
+    real_mean = loop_mod._mean_updates
+    n_micro = tiny.grad_accum_steps
+    uniforms = []
+
+    def in_turn(per_micro):
+        """The microbatches' records applied one after another, as torch's
+        in-place update would: r_i = (1 - m) r_(i-1) + m s_i, where each
+        record is (1 - m) r_0 + m s_i."""
+        m, out = nn_mod.BatchNorm2d.momentum, {}
+        for mod in per_micro[0]:
+            r0 = (mod.running_mean, mod.running_var)
+            r = r0
+            for u in per_micro:
+                r = tuple((1 - m) * ri + (ui - (1 - m) * r0i)
+                          for ri, ui, r0i in zip(r, u[mod], r0))
+            out[mod] = r
+        return out
 
     def run_side(d, fault=None, target=None):
         model = NbmModel(tiny).init_weights(torch.Generator().manual_seed(seed)).to(d)
-        trainer = loop_mod.Trainer(model, tiny)
+        banks = None if pools is None else AugBanks(*(torch.from_numpy(p).to(d) for p in pools))
+        trainer = loop_mod.Trainer(model, tiny, banks)
         if not uniforms:  # drawn once, on the host, for every side
-            uniforms["atl"] = torch.rand(trainer.atl.uniforms_shape(2), generator=gen)
-            uniforms["ptl"] = torch.rand((2, 3, tiny.post_nms_topN + 4), generator=gen)
+            for _ in range(n_micro):
+                uniforms.append({
+                    "atl": torch.rand(trainer.atl.uniforms_shape(b // n_micro), generator=gen),
+                    "ptl": torch.rand((b // n_micro, 3, tiny.post_nms_topN + 4), generator=gen)})
         names = {id(p): n for n, p in model.named_parameters()}
         if fault in ("zero", "scale"):
             factor = 0.0 if fault == "zero" else 0.9
@@ -430,17 +543,24 @@ def training_reference_check(seed: int) -> dict:
             return keep
 
         batch = {k: torch.from_numpy(v).to(d) for k, v in host_batch.items()}
+        u = [{k: v.to(d) for k, v in m.items()} for m in uniforms]
         rpn_mod.greedy_nms_prefix = recording_prefix
         if fault == "tf32":
             loop_mod.full_f32 = tf32_on
+        if fault == "in_turn":
+            loop_mod._mean_updates = in_turn
         try:
-            pos_l = trainer.train_step(batch, False, uniforms={k: v.to(d) for k, v in
-                                                               uniforms.items()})
-            neg_l = trainer.train_step(batch, True)
+            step_l = [trainer.train_step(batch, False, uniforms=u if n_micro > 1 else u[0])]
+            if not recipe:
+                step_l.append(trainer.train_step(batch, True))
         finally:
             rpn_mod.greedy_nms_prefix, loop_mod.full_f32 = real_prefix, real_f32
-        return dict(losses=[{k: float(v) for k, v in pos_l.items()},
-                            {k: float(v) for k, v in neg_l.items()}],
+            loop_mod._mean_updates = real_mean
+        images = None
+        if recipe:
+            images = [assemble_image(batch, banks, neg, noise=batch["aug_noise"]).cpu()
+                      for neg in (False, True)]
+        return dict(losses=[{k: float(v) for k, v in l.items()} for l in step_l], images=images,
                     sd={k: v.cpu() for k, v in model.state_dict().items()},
                     mu={names[id(p)]: s["exp_avg"].cpu()
                         for p, s in trainer.optimizer.state.items()},
@@ -451,7 +571,8 @@ def training_reference_check(seed: int) -> dict:
         """Losses: worst |got - want| / |want|. Parameters, in units of each
         tensor's lr: worst entry and mean over all entries. Adam's first
         moments (the gradients): each tensor's largest difference over its
-        largest magnitude."""
+        largest magnitude. Running statistics: worst difference over the
+        tensor's largest magnitude (a reading)."""
         loss_rel, loss_key = 0.0, None
         for i, (lw, lg) in enumerate(zip(want_side["losses"], got_side["losses"])):
             check(lw.keys() == lg.keys(), f"reference step: loss names {sorted(lg)}")
@@ -470,10 +591,15 @@ def training_reference_check(seed: int) -> dict:
             mu_w, mu_g = want_side["mu"][k], got_side["mu"][k]
             mu[k] = float((mu_g - mu_w).abs().max()) / max(float(mu_w.abs().max()),
                                                             MU_NOISE / MU_TOL)
+        # the live norms: the heads' and, in the recipe, the backbone's
+        live = [k for k in want_side["sd"] if ".running_" in k and (recipe or ".norm." in k)]
+        running = max(float((got_side["sd"][k] - want_side["sd"][k]).abs().max())
+                      / max(float(want_side["sd"][k].abs().max()), 1e-12) for k in live)
         mu_key = max(mu, key=mu.get)
         return dict(loss_rel=loss_rel, loss_key=loss_key, param_worst_lr=worst,
                     param_mean_lr=diff_sum / n_entries, entries=n_entries,
-                    entries_apart=n_apart, mu_worst=mu[mu_key], mu_key=mu_key, mu=mu)
+                    entries_apart=n_apart, mu_worst=mu[mu_key], mu_key=mu_key, mu=mu,
+                    running_worst=running)
 
     side = {"cpu": run_side("cpu"), "cuda": run_side("cuda")}
     sound = measure(side["cpu"], side["cuda"])
@@ -482,50 +608,171 @@ def training_reference_check(seed: int) -> dict:
     sizes = {k: side["cpu"]["sd"][k].numel() for k in side["cpu"]["lr"]}
     target = max((k for k in sizes if sizes[k] <= 0.01 * sound["entries"]), key=sizes.get)
     controls = {f: measure(side["cpu"], run_side("cuda", f, target))
-                for f in ("tf32", "zero", "scale")}
-    for name, r in [("sound", sound)] + list(controls.items()):
-        print(f"training reference {name}: losses within {r['loss_rel']:.3e} relative at worst "
-              f"({r['loss_key']}); parameters within {r['param_worst_lr']:.3f} lr at worst, "
-              f"{r['param_mean_lr']:.3e} lr on average, {r['entries_apart']} of {r['entries']} "
-              f"entries more than 0.05 lr apart; first moments within {r['mu_worst']:.3e} of "
-              f"their tensor's largest magnitude at worst ({r['mu_key']}), "
-              f"{r['mu'][target]:.3e} in {target}", flush=True)
+                for f in ("tf32", "zero", "scale") + (("in_turn",) if recipe else ())}
+    for tag, r in [("sound", sound)] + list(controls.items()):
+        print(f"training reference ({name}) {tag}: losses within {r['loss_rel']:.3e} relative "
+              f"at worst ({r['loss_key']}); parameters within {r['param_worst_lr']:.3f} lr at "
+              f"worst, {r['param_mean_lr']:.3e} lr on average, {r['entries_apart']} of "
+              f"{r['entries']} entries more than 0.05 lr apart; first moments within "
+              f"{r['mu_worst']:.3e} of their tensor's largest magnitude at worst "
+              f"({r['mu_key']}), {r['mu'][target]:.3e} in {target}; running statistics "
+              f"within {r['running_worst']:.3e}", flush=True)
 
-    check(sound["loss_rel"] <= LOSS_TOL, f"reference step: loss {sound['loss_key']} differs by "
-                                         f"{sound['loss_rel']:.3g} relative > {LOSS_TOL}")
+    check(sound["loss_rel"] <= LOSS_TOL, f"reference step ({name}): loss {sound['loss_key']} "
+                                         f"differs by {sound['loss_rel']:.3g} relative > "
+                                         f"{LOSS_TOL}")
     # Two Adam steps move an entry by at most about 2 x 2.05 lr, so this
     # limit catches only gross divergence (a wrong rate, a runaway update).
     check(sound["param_worst_lr"] <= 2 * 2.05 + 1e-6,
-          f"reference step: a parameter {sound['param_worst_lr']:.3g} lr apart > 2 x 2.05 lr")
+          f"reference step ({name}): a parameter {sound['param_worst_lr']:.3g} lr apart > "
+          f"2 x 2.05 lr")
     check(sound["param_mean_lr"] <= PARAM_MEAN_TOL,
-          f"reference step: mean parameter difference {sound['param_mean_lr']:.3g} lr > "
-          f"{PARAM_MEAN_TOL} lr")
-    check(sound["mu_worst"] <= MU_TOL, f"reference step: first moment of {sound['mu_key']} "
-                                       f"differs by {sound['mu_worst']:.3g} of its largest "
-                                       f"magnitude > {MU_TOL}")
+          f"reference step ({name}): mean parameter difference {sound['param_mean_lr']:.3g} "
+          f"lr > {PARAM_MEAN_TOL} lr")
+    check(sound["mu_worst"] <= MU_TOL, f"reference step ({name}): first moment of "
+                                       f"{sound['mu_key']} differs by {sound['mu_worst']:.3g} "
+                                       f"of its largest magnitude > {MU_TOL}")
     # the limits must be able to fail: the two gradient faults exceed them
     check(controls["zero"]["param_mean_lr"] > PARAM_MEAN_TOL,
-          f"control: {target}'s gradient zeroed moves the parameters by only "
+          f"control ({name}): {target}'s gradient zeroed moves the parameters by only "
           f"{controls['zero']['param_mean_lr']:.3g} lr on average <= {PARAM_MEAN_TOL}")
     check(controls["scale"]["mu"][target] > MU_TOL,
-          f"control: {target}'s gradient scaled by 0.9 moves its first moment by only "
-          f"{controls['scale']['mu'][target]:.3g} <= {MU_TOL}")
+          f"control ({name}): {target}'s gradient scaled by 0.9 moves its first moment by "
+          f"only {controls['scale']['mu'][target]:.3g} <= {MU_TOL}")
+    if recipe:
+        check(sound["running_worst"] <= RECIPE_RUNNING_TOL,
+              f"reference step ({name}): running statistics differ by "
+              f"{sound['running_worst']:.3g} of their largest magnitude > {RECIPE_RUNNING_TOL}")
+        check(controls["in_turn"]["running_worst"] > RECIPE_RUNNING_TOL,
+              f"control ({name}): the microbatches' statistics applied in turn move the running "
+              f"statistics by only {controls['in_turn']['running_worst']:.3g} <= "
+              f"{RECIPE_RUNNING_TOL}")
     n_rows = 0
     for (bc, nc, kc), (bg, ng, kg) in zip(side["cpu"]["nms"], side["cuda"]["nms"]):
         for r in range(bc.shape[0]):
             if torch.equal(bc[r], bg[r]) and int(nc[r]) == int(ng[r]):
                 check(torch.equal(kc[r], kg[r]), "reference step: keep masks differ on equal boxes")
                 n_rows += 1
-    check(len(side["cpu"]["nms"]) == 2 and n_rows > 0, "reference step: no NMS row to compare")
-    print(f"training reference check (tiny f32 config, one positive + one negative step): cpu "
-          f"and cuda losses within {sound['loss_rel']:.3e} relative (limit {LOSS_TOL}), keep "
-          f"masks equal on {n_rows} of {2 * len(side['cpu']['nms'])} rows with equal boxes",
+    # one proposal NMS a microbatch of each step
+    n_steps = len(side["cpu"]["losses"])
+    check(len(side["cpu"]["nms"]) == len(side["cuda"]["nms"]) == n_steps * n_micro
+          and n_rows > 0, f"reference step ({name}): {len(side['cuda']['nms'])} NMS calls, "
+                          f"want {n_steps * n_micro}")
+    assemble_err = None
+    if recipe:
+        assemble_err = max(float((g - c).abs().max())
+                           for g, c in zip(side["cuda"]["images"], side["cpu"]["images"]))
+        check(assemble_err <= ASSEMBLE_TOL, f"reference ({name}): the image assembled on the "
+                                            f"card differs by {assemble_err:.3g} > "
+                                            f"{ASSEMBLE_TOL}")
+    print(f"training reference check ({name}, tiny f32 config, batch {b}, "
+          f"{n_micro} microbatch(es), {n_steps} step(s)): cpu and cuda losses within "
+          f"{sound['loss_rel']:.3e} relative (limit {LOSS_TOL}), keep masks equal on "
+          f"{n_rows} of {sum(x[0].shape[0] for x in side['cpu']['nms'])} rows with equal boxes"
+          + ("" if assemble_err is None else
+             f"; assembled images within {assemble_err:.3g} (limit {ASSEMBLE_TOL})"),
           flush=True)
     drop = ("mu", "entries")
     return {"control_tensor": target, "control_tensor_entries": sizes[target],
-            "nms_rows_compared": n_rows,
-            **{name: {k: v for k, v in r.items() if k not in drop}
-               for name, r in [("sound", sound)] + list(controls.items())}}
+            "nms_rows_compared": n_rows, "batch": b, "microbatches": n_micro,
+            "steps": n_steps, "assembled_image_max_abs_err": assemble_err,
+            **{tag: {k: v for k, v in r.items() if k not in drop}
+               for tag, r in [("sound", sound)] + list(controls.items())}}
+
+
+# Remat on the card against no remat: the same positive step, whose losses
+# and recorded running statistics come from the first forward (the
+# recompute must record nothing); the parameters after the update are a
+# reading (cuDNN's backward may sum in another order).
+REMAT_LOSS_TOL = 2e-5
+REMAT_RUNNING_TOL = 1e-6
+
+
+def remat_reference_check(seed: int) -> dict:
+    """The tiny float32 config with a live, trained backbone and
+    grad_accum_steps 2 on the card: one positive step with remat "stages"
+    against none, from the same weights, batch and uniforms. The control:
+    the running statistics as an in-place update would leave them, written
+    again by the recompute, must miss by far more than the limit."""
+    import torch
+
+    from birdsoundclassif_tpu_torch.models import nn as nn_mod
+    from birdsoundclassif_tpu_torch.models.detector import NbmModel
+    from birdsoundclassif_tpu_torch.train import loop as loop_mod
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 7)
+    host_batch, _ = _tiny_training_batch(rng, 4, False)
+    gen = torch.Generator().manual_seed(seed + 7)
+    uniforms, res = [], {}
+    for remat in ("none", "stages"):
+        cfg = _tiny_training_cfg(grad_accum_steps=2, norm_layer_backbone="batchnorm",
+                                 remat_backbone=remat != "none", remat_granularity=remat)
+        model = NbmModel(cfg).init_weights(torch.Generator().manual_seed(seed)).to(dev)
+        trainer = loop_mod.Trainer(model, cfg)
+        if not uniforms:
+            for _ in range(2):
+                uniforms.append({"atl": torch.rand(trainer.atl.uniforms_shape(2), generator=gen),
+                                 "ptl": torch.rand((2, 3, cfg.post_nms_topN + 4), generator=gen)})
+        before = {k: v.clone() for k, v in model.state_dict().items() if ".running_" in k}
+        recorded = []
+        real_mean = loop_mod._mean_updates
+
+        def keep_records(per_micro):
+            recorded.append(per_micro)
+            return real_mean(per_micro)
+
+        loop_mod._mean_updates = keep_records
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses = trainer.train_step({k: torch.from_numpy(v).to(dev)
+                                         for k, v in host_batch.items()},
+                                        uniforms=[{k: v.to(dev) for k, v in u.items()}
+                                                  for u in uniforms])
+            torch.cuda.synchronize()
+        finally:
+            loop_mod._mean_updates = real_mean
+        names = {m: n for n, m in model.named_modules()}
+        # an in-place update written again by a recompute: r2 = (1 - m) r1 + m s
+        m = nn_mod.BatchNorm2d.momentum
+        twice = {}
+        for mod, (mean, var) in real_mean(recorded[0]).items():
+            r0m, r0v = before[f"{names[mod]}.running_mean"], before[f"{names[mod]}.running_var"]
+            s_m, s_v = (mean - (1 - m) * r0m) / m, (var - (1 - m) * r0v) / m
+            twice[f"{names[mod]}.running_mean"] = ((1 - m) * mean + m * s_m).cpu()
+            twice[f"{names[mod]}.running_var"] = ((1 - m) * var + m * s_v).cpu()
+        res[remat] = dict(losses={k: float(v) for k, v in losses.items()},
+                          sd={k: v.cpu() for k, v in model.state_dict().items()},
+                          twice=twice, peak=torch.cuda.max_memory_allocated())
+    a, b = res["none"], res["stages"]
+    loss_rel = max(abs(b["losses"][k] - a["losses"][k]) / max(abs(a["losses"][k]), 1e-12)
+                   for k in a["losses"])
+    running = [k for k in a["sd"] if ".running_" in k]
+
+    def worst(got):
+        return max(float((got[k] - a["sd"][k]).abs().max())
+                   / max(float(a["sd"][k].abs().max()), 1e-12) for k in running)
+
+    running_rel, control_rel = worst(b["sd"]), worst(b["twice"])
+    params = [k for k in a["sd"] if ".running_" not in k]
+    param_rel = max(float((b["sd"][k] - a["sd"][k]).abs().max())
+                    / max(float(a["sd"][k].abs().max()), 1e-12) for k in params)
+    print(f"remat on the card (tiny f32, live backbone, 2 microbatches): stages against none, "
+          f"losses within {loss_rel:.3e} relative (limit {REMAT_LOSS_TOL}), {len(running)} "
+          f"running statistics within {running_rel:.3e} (limit {REMAT_RUNNING_TOL}; updated "
+          f"twice {control_rel:.3e}), parameters within {param_rel:.3e} of their largest "
+          f"magnitude (a reading); peak memory {a['peak'] / 2**20:.1f} / "
+          f"{b['peak'] / 2**20:.1f} MiB", flush=True)
+    check(loss_rel <= REMAT_LOSS_TOL, f"remat: losses differ by {loss_rel:.3g} relative")
+    check(running_rel <= REMAT_RUNNING_TOL, f"remat: running statistics differ by "
+                                            f"{running_rel:.3g} > {REMAT_RUNNING_TOL}")
+    check(control_rel > REMAT_RUNNING_TOL, f"remat control: statistics updated twice miss "
+                                           f"by only {control_rel:.3g}")
+    check(len(running) == 2 * (53 + cfg.n_layers + cfg.depth_rcnn),
+          f"remat: {len(running)} running statistics")
+    return dict(loss_rel=loss_rel, running_rel=running_rel, updated_twice_rel=control_rel,
+                param_rel=param_rel, peak_bytes={"none": a["peak"], "stages": b["peak"]})
 
 
 # Phase 8's folder: six synthetic recordings (one in a subfolder).
@@ -1220,6 +1467,210 @@ def export_phase(seed: int, kern) -> dict:
     return out
 
 
+# Phase 10: the JAX package's production recipe (scripts/train_hard.py) at
+# the flagship config through the port's driver.
+RECIPE_FLAGS = ["--batch_size", "16", "--grad_accum_steps", "4", "--remat_backbone", "true",
+                "--remat_granularity", "stages", "--device_augment", "true",
+                "--aug_bank_mb", "1024", "--batch_transfer_dtype", "bfloat16"]
+REMAT_MODES = ("none", "trunk", "stages", "blocks")
+
+
+def recipe_phase(seed: int, kern) -> dict:
+    """The production recipe at the flagship NbmConfig() on cuda: batch 16
+    in 4 microbatches of 4, remat "stages", device augmentation from banks
+    on the card, bf16 transfer, on a dataset of 64 positive windows (the
+    phase-6 writer over a 240 s recording): 7 steps (steps 2, 4 and 6
+    negative), one validation pass of 32 windows, a 2-step resume (step 8
+    negative). Checks: finite losses; exactly 4 proposal-NMS launches a
+    step (one a microbatch), 2 for the validation pass; meta.json; the
+    banks. Readings: warm positive steps (1, 3) and negative steps (4, 6,
+    8), the first step and the first negative step apart (each is the
+    first at its shapes), peak memory, one profiled positive step (5:
+    device busy, idle share), the banks' MB. Then the trainer alone
+    on one batch of that dataset with each remat mode in turns: peak memory
+    and step time; "stages" must peak below "none"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from birdsoundclassif_tpu_torch.audio.frontend import SpectrogramFrontend
+    from birdsoundclassif_tpu_torch.audio.wavio import load_audio_raw
+    from birdsoundclassif_tpu_torch.config import NbmConfig
+    from birdsoundclassif_tpu_torch.data import png as png_mod
+    from birdsoundclassif_tpu_torch.data.image_dataset import ImgDataset, collate_batch
+    from birdsoundclassif_tpu_torch.models.detector import NbmModel
+    from birdsoundclassif_tpu_torch.train import driver as driver_mod
+    from birdsoundclassif_tpu_torch.train import loop as loop_mod
+
+    dev = torch.device("cuda")
+    cfg = NbmConfig()
+    steps_first, steps_resume, micro = 7, 2, 4
+    profiled_step, first_neg = 5, 2
+    step_log = []   # (step, negative, seconds, peak bytes, launches, losses)
+    prof_out, bank_mb = {}, []
+    real_step, real_banks = loop_mod.Trainer.train_step, driver_mod.build_banks
+
+    def timed_step(self, batch, negative_sample=False, generator=None, uniforms=None):
+        step = self.steps
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = kern.launches
+        t0 = time.perf_counter()
+        if step == profiled_step:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                out = real_step(self, batch, negative_sample, generator, uniforms)
+                torch.cuda.synchronize()
+            prof_out["wall"] = time.perf_counter() - t0
+            prof_out["timeline"] = device_timeline(prof, prof_out["wall"])
+        else:
+            out = real_step(self, batch, negative_sample, generator, uniforms)
+        torch.cuda.synchronize()
+        step_log.append((step, bool(negative_sample), time.perf_counter() - t0,
+                         torch.cuda.max_memory_allocated(), kern.launches - before,
+                         {k: float(v) for k, v in out.items()}))
+        return out
+
+    def measured_banks(dataset, c, device):
+        banks = real_banks(dataset, c, device)
+        bank_mb.append(sum(b.nbytes for b in banks if b is not None) / 1e6)
+        return banks
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = os.path.join(tmp, "dataset")
+        fe_cfg = cfg.frontend
+        wav_pos, wav_neg = os.path.join(tmp, "pos.wav"), os.path.join(tmp, "neg.wav")
+        write_wav(wav_pos, 240.0, seed + 11)
+        write_wav(wav_neg, 40.0, seed + 12, tones=False)
+        fe = SpectrogramFrontend(fe_cfg, device=dev)
+        pos = fe.process(load_audio_raw(wav_pos, fe_cfg.sample_rate))
+        neg = fe.process(load_audio_raw(wav_neg, fe_cfg.sample_rate))
+        n_pos, n_boxes = write_training_dataset(
+            data, pos.spec.cpu().numpy(), pos.window_cols, neg.spec.cpu().numpy(),
+            neg.window_cols, fe_cfg.hop_length / fe_cfg.sample_rate, seed, png_mod, n_pos=64)
+        check(n_pos == 64, f"only {n_pos} of 64 positive windows hold a burst")
+        dataset_s = time.perf_counter() - t0
+        save_root = os.path.join(tmp, "models")
+        flags = ["--data_path", data, "--save_dir", save_root, "--model_name", "recipe",
+                 "--validation_prop", "0.5", "--eval_every", str(steps_first),
+                 "--neg_step_freq", "2", "--first_neg_step", "1", "--seed", str(seed),
+                 "--device", "cuda", *RECIPE_FLAGS]
+        loop_mod.Trainer.train_step = timed_step
+        driver_mod.build_banks = measured_banks
+        try:
+            kern.launches = 0
+            t0 = time.perf_counter()
+            rc = driver_mod.main(flags + ["--max_steps", str(steps_first)])
+            torch.cuda.synchronize()
+            first_wall, first_launches = time.perf_counter() - t0, kern.launches
+            kern.launches = 0
+            t0 = time.perf_counter()
+            rc_resume = driver_mod.main(flags + ["--max_steps", str(steps_first + steps_resume)])
+            torch.cuda.synchronize()
+            resume_wall, resume_launches = time.perf_counter() - t0, kern.launches
+        finally:
+            loop_mod.Trainer.train_step, driver_mod.build_banks = real_step, real_banks
+        check(rc == 0 and rc_resume == 0, f"recipe: driver.main returned {rc} / {rc_resume}")
+        check([st for st, *_ in step_log] == list(range(steps_first + steps_resume)),
+              f"recipe: steps {[st for st, *_ in step_log]}")
+        check([st for st, neg, *_ in step_log if neg] == [2, 4, 6, 8],
+              "recipe: steps 2, 4, 6 and 8 alone must be negative")
+        for st, neg, _, _, launches, losses in step_log:
+            check(launches == micro, f"recipe step {st}: {launches} proposal-NMS launches, want "
+                                     f"one a microbatch = {micro}")
+            check(all(math.isfinite(v) for v in losses.values()), f"recipe step {st}: {losses}")
+        check(first_launches == micro * steps_first + 2,
+              f"recipe: {first_launches} NMS launches, want {micro} x {steps_first} steps + 2 "
+              f"validation (one batch of 32 and its negative)")
+        check(resume_launches == micro * steps_resume, f"recipe resume: {resume_launches} "
+                                                       f"launches")
+        mdir = os.path.join(save_root, "recipe")
+        with open(os.path.join(mdir, "ckpt_last", "meta.json")) as f:
+            meta = json.load(f)
+        check(meta["steps"] == steps_first + steps_resume, f"recipe meta.json: {meta}")
+        with open(os.path.join(mdir, "metrics.jsonl")) as f:
+            tags = {json.loads(line)["tag"] for line in f}
+        check("Val_Loss/sec_class_loss" in tags, "recipe: no validation scalars")
+        check(len(bank_mb) == 2 and bank_mb[0] > 0, f"recipe: banks {bank_mb}")
+
+        # the remat modes in turns on one batch of this dataset
+        rcfg = NbmConfig.load(os.path.join(mdir, "args"))
+        ds = ImgDataset(data, transform=True, rng=np.random.default_rng(seed))
+        banks = real_banks(ds, rcfg, dev)
+        batch = driver_mod.batch_to_device(
+            collate_batch([ds[i] for i in range(16)], rcfg.max_gt_boxes), dev,
+            rcfg.batch_transfer_dtype)
+        model = NbmModel(rcfg).init_weights(torch.Generator().manual_seed(seed)).to(dev)
+        trainer = loop_mod.Trainer(model, rcfg, banks)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        sweep = {m: dict(ms=[], peak_bytes=0) for m in REMAT_MODES}
+
+        def remat_step(mode):
+            rcfg.remat_backbone = mode != "none"
+            rcfg.remat_granularity = "stages" if mode == "none" else mode
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            losses = trainer.train_step(batch, generator=gen)
+            torch.cuda.synchronize()
+            check(all(math.isfinite(float(v)) for v in losses.values()), f"remat {mode}")
+            return (time.perf_counter() - t) * 1e3, torch.cuda.max_memory_allocated()
+
+        remat_step("none")  # warm-up: the first calls of every kernel
+        for mode in REMAT_MODES + REMAT_MODES[::-1]:
+            ms, peak = remat_step(mode)
+            sweep[mode]["ms"].append(ms)
+            sweep[mode]["peak_bytes"] = max(sweep[mode]["peak_bytes"], peak)
+        del model, trainer, banks, batch
+    for mode in REMAT_MODES:
+        sweep[mode]["step_ms_median"] = float(np.median(sweep[mode]["ms"]))
+        print(f"remat {mode}: batch 16 in 4 microbatches, peak memory "
+              f"{sweep[mode]['peak_bytes'] / 2**30:.2f} GiB, step "
+              f"{sweep[mode]['step_ms_median']:.1f} ms (median of 2, in turns)", flush=True)
+    check(sweep["stages"]["peak_bytes"] < sweep["none"]["peak_bytes"],
+          "remat stages does not peak below no remat")
+    # warm steps: not the first (cold), the first negative one (the RCNN's
+    # first run over all the proposals: cold convolution choices), the
+    # profiled one or the first of the resume
+    warm = [(neg, dt, m) for st, neg, dt, m, _, _ in step_log
+            if st not in (0, first_neg, profiled_step, steps_first)]
+    pos = [(dt, m) for neg, dt, m in warm if not neg]
+    negs = [(dt, m) for neg, dt, m in warm if neg]
+    check(len(pos) == 2 and len(negs) == 3, f"recipe: {len(pos)} warm positive steps, "
+                                            f"{len(negs)} warm negative steps")
+    tl = prof_out["timeline"]
+    out = {
+        "config": "NbmConfig() flagship, " + " ".join(RECIPE_FLAGS),
+        "positive_windows": n_pos, "boxes": n_boxes, "dataset_s": dataset_s,
+        "bank_mb": bank_mb[0], "steps": steps_first, "resume_steps": steps_resume,
+        "first_step_s": step_log[0][2], "first_negative_step_s": step_log[first_neg][2],
+        "first_run_wall_s": first_wall,
+        "resume_wall_s": resume_wall,
+        "positive_step_ms": [dt * 1e3 for dt, _ in pos],
+        "negative_step_ms": [dt * 1e3 for dt, _ in negs],
+        "positive_peak_bytes": max(m for _, m in pos), "negative_peak_bytes": max(m for _, m in negs),
+        "profiled_positive_step": tl,
+        # derived from two steps: the profiled step's device busy time over
+        # the median wall time of the unprofiled warm positive steps
+        "idle_share_derived_unprofiled": 1.0 - tl["device_union_ms"] / float(
+            np.median([dt * 1e3 for dt, _ in pos])),
+        "nms_launches_per_step": [x[4] for x in step_log], "nms_launches": first_launches,
+        "resume_nms_launches": resume_launches,
+        "remat": {m: {k: v for k, v in sweep[m].items()} for m in REMAT_MODES},
+    }
+    print(f"recipe (flagship, {' '.join(RECIPE_FLAGS)}): banks {bank_mb[0]:.1f} MB on the card; "
+          f"first step {out['first_step_s']:.2f} s, first negative step "
+          f"{out['first_negative_step_s']:.2f} s; warm positive step "
+          f"{np.median(out['positive_step_ms']):.1f} ms ({len(pos)} steps), negative "
+          f"{np.median(out['negative_step_ms']):.1f} ms ({len(negs)} steps); peak memory "
+          f"positive {out['positive_peak_bytes'] / 2**30:.2f} GiB, negative "
+          f"{out['negative_peak_bytes'] / 2**30:.2f} GiB; profiled positive step wall "
+          f"{tl['wall_ms']:.1f} ms, device busy {tl['device_union_ms']:.1f} ms, idle share "
+          f"{tl['idle_share']:.3f} (derived against the unprofiled warm steps' wall: "
+          f"{out['idle_share_derived_unprofiled']:.3f}), {tl['kernel_launches']} kernel "
+          f"launches; proposal-NMS launches a step {out['nms_launches_per_step']}", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1339,6 +1790,15 @@ def main() -> int:
         cases += [(f"disjoint-{n}", disjoint_boxes(b, n), [n] * b, 0.5),
                   (f"cluster-{n}", cluster_boxes(b, n), [n] * b, 0.5),
                   (f"chain-{n}", chain_boxes(b, n), [n] * b, 0.15)]
+    # the recipe's shapes (phase 10): the proposal NMS of a microbatch of 4
+    # (batch 16 in 4) at pre_nms_topN 3000, and validation's batch of 32
+    # (both halves of a 16-batch) at the eval top-N 500; boxes of their own
+    # seed, so that the cases above keep their inputs
+    rng_recipe = np.random.default_rng(args.seed + 6)
+    cases += [(name, random_boxes(rng_recipe, b, n), nvs, thr) for name, b, n, thr, nvs in (
+        ("recipe-proposal", 4, 3000, 0.7, [3000, 2891, 1777, 0]),
+        ("recipe-validation", 32, 500, 0.7, [500] * 31 + [431]),
+    )]
     max_err = 0.0
     synthetic = {}
     for name, np_boxes, nvs, thr in cases:
@@ -1348,7 +1808,7 @@ def main() -> int:
         max_err = max(max_err, compare(boxes, nv, thr, name))
         k_ms = time_ms(lambda: run_kernel(boxes, nv, thr), 20)
         d_ms = device_ms(lambda: run_kernel(boxes, nv, thr))
-        p_ms = time_ms(lambda: run_plain(boxes, nv, thr), 3)
+        p_ms = time_ms(lambda: run_plain(boxes, nv, thr), 1)
         keep = run_kernel(boxes, nv, thr).cpu().numpy()
         t_bytes, t_ops, pairs = bound(np_boxes, np.asarray(nvs), keep, thr)
         synthetic[name] = dict(shape=[b, n], thresh=thr, n_valid=nvs, ms=k_ms, device_ms=d_ms,
@@ -1359,6 +1819,38 @@ def main() -> int:
               f"{int(keep.sum())}; kernel {k_ms:.4f} ms a call, {d_ms:.5f} ms on the device, "
               f"plain {p_ms:.3f} ms, bound {max(t_bytes, t_ops):.6f} ms "
               f"({'bytes' if t_bytes >= t_ops else 'operations'}, {pairs} IoUs)", flush=True)
+    # rows past 14,400 boxes, whose scan streams its mask tiles through the
+    # ring in segments: full and partial prefixes, poisoned scratch; the
+    # plain version walks the valid prefix pivot by pivot (seconds a row
+    # here), so it runs once, timed once, and the host replay of the bound
+    # is left out
+    for name, b, n, nvs in (("row-14401", 1, 14_401, [14_401]),
+                            ("row-16384", 2, 16_384, [16_384, 9_001]),
+                            ("row-23040", 2, 23_040, [23_040, 17_000])):
+        boxes = torch.from_numpy(random_boxes(rng, b, n)).to(dev)
+        nv = torch.tensor(nvs, dtype=torch.int32, device=dev)
+        poison(boxes)
+        keep_k = run_kernel(boxes, nv, 0.7)
+        keep_again = run_kernel(boxes, nv, 0.7)
+        s_ev, e_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s_ev.record()
+        keep_p = run_plain(boxes, nv, 0.7)
+        e_ev.record()
+        e_ev.synchronize()
+        diff = int((keep_k != keep_p).sum().item())
+        check(diff == 0, f"{name}: kernel and plain keep masks differ in {diff} places")
+        check(torch.equal(keep_k, keep_again), f"{name}: the same launch twice gave two masks")
+        k_ms = time_ms(lambda: run_kernel(boxes, nv, 0.7), 20)
+        d_ms = device_ms(lambda: run_kernel(boxes, nv, 0.7))
+        synthetic[name] = dict(shape=[b, n], thresh=0.7, n_valid=nvs, ms=k_ms, device_ms=d_ms,
+                               plain_ms=s_ev.elapsed_time(e_ev), bound_ms=None,
+                               scan_plan=list(nms_mod.nms_scan_plan(n)),
+                               kept=int(keep_k.sum().item()))
+        print(f"kernel {name}: B={b} N={n} n_valid={nvs} equal (scan plan "
+              f"{synthetic[name]['scan_plan']}: tiles a buffer, buffers), kept "
+              f"{synthetic[name]['kept']}; kernel {k_ms:.4f} ms a call, {d_ms:.5f} ms on the "
+              f"device, plain {synthetic[name]['plain_ms']:.1f} ms (one call)", flush=True)
+        del boxes, keep_k, keep_again, keep_p
     for thr in (0.7, 0.3):
         tb, tn = tie_boxes()
         boxes, nv = torch.from_numpy(tb).to(dev), torch.from_numpy(tn).to(dev)
@@ -1851,6 +2343,11 @@ def main() -> int:
     export["phase_end_s"] = phase_end_s
     export["card"] = card
 
+    # ---- 10. the production training recipe at the flagship config ----
+    recipe = recipe_phase(args.seed, kern)
+    phase_done(10)
+    recipe["card"] = card
+
     bad = [m for m in sys.modules
            if m == "jax" or m.startswith("jax.") or m == "birdsoundclassif_tpu"
            or m.startswith("birdsoundclassif_tpu.")]
@@ -1871,6 +2368,9 @@ def main() -> int:
         "device_ms": tot_device,
         "training_shape_ms": synthetic["training-proposal"]["ms"],
         "training_shape_device_ms": synthetic["training-proposal"]["device_ms"],
+        "recipe_shapes": {k: {f: synthetic[k][f] for f in ("shape", "ms", "device_ms", "plain_ms",
+                                                           "bound_ms", "bound_by")}
+                          for k in ("recipe-proposal", "recipe-validation")},
         "per_file_uses": uses,
         "training_launches": train_launches,
         "training_resume_launches": resume_launches,
@@ -1882,10 +2382,13 @@ def main() -> int:
         "exported_file_launches": export["children"]["exported"]["nms_launches"],
         "serve_exported_launches": export["serve_exported"]["nms_launches"],
         "operator_in_call_ms": export["operator_in_call_ms"],
+        "recipe_launches_per_step": recipe["nms_launches_per_step"],
+        "recipe_launches": recipe["nms_launches"],
         "card": card,
     }]
     print(json.dumps({"serving": serving}))
     print(json.dumps({"export": export}))
+    print(json.dumps({"recipe": recipe}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -12,10 +12,18 @@ It builds birdsoundclassif_tpu_torch/csrc/nms_in_order.cu and then:
      shows;
   2. times both paths over a sweep of N (B=4, thresh 0.7, all valid) to
      place ``NMS_ONE_LAUNCH_MAX_N``, the wrapper's switch;
-  3. times the shapes the port uses (proposal, detection, merge, training),
-     and the bitmask launch and the scan launch apart; writes the compiled
-     code (cuobjdump -sass) beside the JSON;
-  4. measures the floor of a launch: the wrapper on one box.
+  3. times the shapes the port uses (proposal, detection, merge, training)
+     and rows past 14,400 boxes (whose scan streams its mask tiles in
+     segments), through the ctypes wrapper and through the registered
+     operator ``torch.ops.birdsoundclassif_tpu_torch.nms_in_order`` that
+     the main paths call, and the bitmask launch and the scan launch
+     apart; writes the compiled code (cuobjdump -sass) beside the JSON;
+  4. measures the floor of a launch: the wrapper on one box;
+  5. with ``--against OLD.cu``, another version of the kernel source (an
+     earlier commit's csrc/nms_in_order.cu with the same launch functions)
+     built beside this one, both launched directly at the port's shapes,
+     masks compared, and their device times taken in turns (old, new, new,
+     old, five rounds).
 
 Two clocks. ``call_ms``: CUDA events around one call of the wrapper from
 Python, median of 20; on a short kernel this is the host's time to enqueue
@@ -76,10 +84,76 @@ TIE_BOXES = np.asarray([[[0, 0, 9, 0], [0, 0, 6, 0], [20, 5, 29, 5], [20, 5, 22,
                          [40, 0, 49, 9]]], np.float32)
 
 
+def against(old_source: str, kern, nms_mod, rng, dev, device_ms, failed) -> list:
+    """Both sources' launches at the port's shapes: equal masks, then each
+    one's device time (CUDA graph of 20 calls) in turns, five rounds."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from birdsoundclassif_tpu_torch.kernels import CudaKernel
+
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copy(old_source, os.path.join(tmp, "nms_in_order_old.cu"))
+        old = CudaKernel("nms_in_order_old", {
+            k: v for k, v in kern.entry_points.items() if k != "nms_scan_plan"})
+        old.source = os.path.join(tmp, "nms_in_order_old.cu")
+        old.build()
+    out = []
+    for name, b, n, thr, nvs in (("proposal", 4, 500, 0.7, [500, 431, 1, 0]),
+                                 ("detection", 4, 50, 0.3, [50, 37, 44, 50]),
+                                 ("merge", 1, 2600, 0.3, [893]),
+                                 ("training-proposal", 2, 3000, 0.7, [3000, 2207]),
+                                 ("merge-8192-full", 1, 8192, 0.3, [8192]),
+                                 ("row-14400", 1, 14_400, 0.7, [14_400])):
+        boxes = torch.from_numpy(random_boxes(rng, b, n)).to(dev)
+        nv = torch.tensor(nvs, dtype=torch.int32, device=dev)
+        mask = torch.empty((b, nms_mod.nms_mask_words(n)), dtype=torch.int64, device=dev)
+        keeps = {v: torch.empty((b, n), dtype=torch.bool, device=dev) for v in ("old", "new")}
+
+        def launch(version):
+            lib, keep = (old, keeps["old"]) if version == "old" else (kern, keeps["new"])
+            stream = torch.cuda.current_stream().cuda_stream
+            if n <= nms_mod.NMS_ONE_LAUNCH_MAX_N:
+                err = lib.call("nms_fused_launch", boxes.data_ptr(), nv.data_ptr(), b, n, thr,
+                               keep.data_ptr(), stream)
+            else:
+                err = lib.call("nms_mask_launch", boxes.data_ptr(), nv.data_ptr(), b, n, thr,
+                               mask.data_ptr(), stream)
+                err = err or lib.call("nms_scan_launch", mask.data_ptr(), nv.data_ptr(), b, n,
+                                      keep.data_ptr(), stream)
+            assert err == 0, (version, err)
+
+        launch("old")
+        launch("new")
+        torch.cuda.synchronize()
+        equal = torch.equal(keeps["old"], keeps["new"])
+        if not equal:
+            failed.append({"against": name})
+        times = {"old": [], "new": []}
+        for _ in range(5):
+            for version in ("old", "new", "new", "old"):
+                times[version].append(device_ms(lambda: launch(version)))
+        rec = {"use": name, "b": b, "n": n, "n_valid": nvs, "masks_equal": equal,
+               "old_device_ms": times["old"], "new_device_ms": times["new"],
+               "old_median_ms": float(np.median(times["old"])),
+               "new_median_ms": float(np.median(times["new"]))}
+        out.append(rec)
+        print(f"against {name}: B={b} N={n} masks {'equal' if equal else 'DIFFER'}; device "
+              f"old {rec['old_median_ms']:.5f} ms (range {min(times['old']):.5f}-"
+              f"{max(times['old']):.5f}), new {rec['new_median_ms']:.5f} ms (range "
+              f"{min(times['new']):.5f}-{max(times['new']):.5f}), medians of 10 in turns",
+              flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=os.path.join("build", "nms_bench.json"))
+    ap.add_argument("--against", default=None,
+                    help="an earlier nms_in_order.cu to time in turns with this one")
     args = ap.parse_args()
 
     import torch
@@ -159,7 +233,9 @@ def main() -> int:
     checks = [(5, n, 0.5, [0, 1, min(64, n), min(65, n), n])
               for n in (1, 2, 63, 64, 65, 127, 128, 129, 500, 1023, 1024)]
     checks += [(4, 500, 0.7, [500, 431, 1, 0]), (4, 50, 0.3, [50, 37, 1, 0]),
-               (2, 3000, 0.7, [3000, 2207]), (1, 8192, 0.3, [8192]), (1, 8192, 0.3, [2611])]
+               (2, 3000, 0.7, [3000, 2207]), (1, 8192, 0.3, [8192]), (1, 8192, 0.3, [2611]),
+               (2, 14_400, 0.7, [14_400, 9_001]), (2, 14_401, 0.7, [14_401, 14_337]),
+               (1, 16_384, 0.7, [16_384]), (2, 23_040, 0.7, [23_040, 7_169])]
     checks = [(b, n, thr, nvs, random_boxes(rng, b, n)) for b, n, thr, nvs in checks]
     for n in (50, 500, 3000):
         checks += [(1, n, thr, [n], make(n)[None]) for thr, make in
@@ -199,13 +275,19 @@ def main() -> int:
     # ---- 3. the shapes the port uses ----
     uses = [("proposal", 4, 500, 0.7, [500] * 4), ("detection", 4, 50, 0.3, [50, 37, 44, 50]),
             ("merge", 1, 2600, 0.3, [893]), ("training-proposal", 2, 3000, 0.7, [3000, 2207]),
-            ("merge-8192-full", 1, 8192, 0.3, [8192]), ("merge-8192-partial", 1, 8192, 0.3, [2611])]
+            ("merge-8192-full", 1, 8192, 0.3, [8192]), ("merge-8192-partial", 1, 8192, 0.3, [2611]),
+            ("row-14401", 1, 14_401, 0.7, [14_401]), ("row-16384", 1, 16_384, 0.7, [16_384]),
+            ("row-23040", 1, 23_040, 0.7, [23_040]),
+            ("training-proposal-23040", 4, 23_040, 0.7, [23_040, 23_040, 17_000, 23_040])]
     for name, b, n, thr, nvs in uses:
         boxes = torch.from_numpy(random_boxes(rng, b, n)).to(dev)
         nv = torch.tensor(nvs, dtype=torch.int32, device=dev)
         rec = {"use": name, "b": b, "n": n, "thresh": thr, "n_valid": nvs,
+               "scan_plan": list(nms_mod.nms_scan_plan(n)),
                "call_ms": call_ms(lambda: run(boxes, nv, thr)),
-               "device_ms": device_ms(lambda: run(boxes, nv, thr))}
+               "device_ms": device_ms(lambda: run(boxes, nv, thr)),
+               "operator_call_ms": call_ms(lambda: nms_mod.nms_op(boxes, nv, thr)),
+               "operator_device_ms": device_ms(lambda: nms_mod.nms_op(boxes, nv, thr))}
         if n <= hard_fused_max:
             rec["two_launch_device_ms"] = device_ms(lambda: run(boxes, nv, thr, 2))
         results["uses"].append(rec)
@@ -246,6 +328,10 @@ def main() -> int:
                         "one_box_device_ms": device_ms(lambda: run(boxes, nv, 0.5)),
                         "empty_event_pair_ms": call_ms(lambda: None)}
     print("floor " + json.dumps(results["floor"]), flush=True)
+
+    # ---- 5. against an earlier source, in turns ----
+    if args.against:
+        results["against"] = against(args.against, kern, nms_mod, rng, dev, device_ms, failed)
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

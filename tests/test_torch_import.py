@@ -30,6 +30,7 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import birdsoundclassif_tpu_torch.audio.mp3\n"
         "import birdsoundclassif_tpu_torch.train.driver\n"
         "import birdsoundclassif_tpu_torch.data.image_dataset\n"
+        "import birdsoundclassif_tpu_torch.data.device_aug\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'birdsoundclassif_tpu' or m.startswith('birdsoundclassif_tpu.')\n"
         "       or m.split('.')[0] in ('pandas', 'imageio', 'PIL')]\n"
@@ -56,7 +57,7 @@ def test_sources_import_nothing_of_jax():
         assert not pattern.findall(f.read())
     assert len(scanned) >= 20
     assert {"models/optimize.py", "audio/mp3.py", "infer/serve.py", "infer/sweep.py",
-            "infer/export.py"} <= scanned
+            "infer/export.py", "data/device_aug.py"} <= scanned
 
 
 def test_cli_raises_without_gpu_unless_device_cpu(tmp_path):

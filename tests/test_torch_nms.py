@@ -14,6 +14,9 @@ version and against the JAX side at word boundaries, unequal n_valid in a
 batch, IoU ties, and the scan's worst cases.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -214,16 +217,91 @@ def test_bitmask_scan_worst_cases(make, n, thresh, kept, rounds):
     np.testing.assert_array_equal(got, want)
 
 
+# The scan's plan of shared memory (csrc/nms_in_order.cu: scan_smem_bytes,
+# scan_plan), copied here term by term: a ring of `ring` buffers of `seg`
+# mask tiles (64 words of 8 bytes), the removed bitset (one word a 64
+# boxes), one kept word and a barrier a buffer, within the 227 KB a Hopper
+# block may use. The constants are read from the source.
+_CU_SOURCE = Path(tnms.__file__).resolve().parent.parent / "csrc" / "nms_in_order.cu"
+
+
+def _cu_constant(name):
+    value = re.search(rf"constexpr int {name} = (\w+);", _CU_SOURCE.read_text()).group(1)
+    return int(value) if value.isdigit() else _cu_constant(value)
+
+
+_SMEM, _MAX_RING, _MAX_SEG = (_cu_constant(k) for k in ("kMaxSmem", "kMaxRing", "kMaxSegment"))
+
+
+def _scan_smem_bytes(n, seg, ring):
+    w = -(-n // 64)
+    return (ring * seg * 64 + w + 1 + ring) * 8
+
+
+def _scan_plan(n):
+    w = -(-n // 64)
+    for ring in range(_MAX_RING, 1, -1):
+        if _scan_smem_bytes(n, w, ring) <= _SMEM:
+            return w, ring
+    fixed = _scan_smem_bytes(n, 0, _MAX_RING)
+    seg = (_SMEM - fixed) // (_MAX_RING * 64 * 8) if fixed < _SMEM else 0
+    return (seg, _MAX_RING) if seg >= 1 else None
+
+
 def test_mask_scratch_size_and_kernel_limits():
     """The wrapper sizes the bitmask scratch as the kernel lays it out: the
-    upper triangle of a w x w grid of 64-word tiles, w = ceil(N / 64)."""
+    upper triangle of a w x w grid of 64-word tiles, w = ceil(N / 64). Rows
+    of up to 14,400 boxes keep the scan's whole run of tiles in each ring
+    buffer, longer rows stream it in segments."""
     assert tnms.nms_mask_words(1) == 64
     assert tnms.nms_mask_words(64) == 64
     assert tnms.nms_mask_words(65) == 3 * 64
     assert tnms.nms_mask_words(3000) == 47 * 48 // 2 * 64
-    assert tnms.NMS_ONE_LAUNCH_MAX_N <= 1024 < tnms.NMS_KERNEL_MAX_N
+    assert tnms.NMS_ONE_LAUNCH_MAX_N <= 1024
+    assert not hasattr(tnms, "NMS_KERNEL_MAX_N")
+    assert (_SMEM, _MAX_RING, _MAX_SEG) == (232_448, 4, 512)
+    assert _scan_plan(3000) == (47, 4)
+    assert _scan_plan(8192) == (128, 3)
+    assert _scan_plan(14_400) == (225, 2)
+    assert _scan_plan(14_401) == (112, 4)
     # two buffers of one chunk's tiles, the removed words, the kept word and
-    # two barriers fit a Hopper block's 227 KB at the limit, and not beyond
-    words = tnms.NMS_KERNEL_MAX_N // 64
+    # two barriers fit a Hopper block's 227 KB at 14,400, and not beyond
+    words = 14_400 // 64
     assert (2 * words * 64 + words + 1 + 2) * 8 <= 232_448
     assert (2 * (words + 1) * 64 + (words + 1) + 1 + 2) * 8 > 232_448
+
+
+@pytest.mark.parametrize("n", [65, 3000, 14_400, 14_401, 16_384, 23_040, 46_080, 200_000,
+                               1_842_880])
+def test_scan_shared_memory_plan_fits_any_row(n):
+    """The scan's plan fits 227 KB with 2-4 buffers of 1 to ceil(N/64)
+    tiles at any row length the mask scratch allows; past 14,400 boxes it
+    streams through the most buffers of the most tiles that fit."""
+    seg, ring = _scan_plan(n)
+    w = -(-n // 64)
+    assert 2 <= ring <= _MAX_RING and 1 <= seg <= min(w, _MAX_SEG)
+    assert _scan_smem_bytes(n, seg, ring) <= _SMEM
+    if n > 14_400:
+        assert ring == _MAX_RING and seg < w
+        assert _scan_smem_bytes(n, seg + 1, ring) > _SMEM
+    assert _scan_plan(1_842_880 + 64) is None
+
+
+def test_plain_matches_jax_past_the_old_row_limit():
+    """Rows longer than 14,400 boxes, which the card refused before: the
+    port's CPU path (the operator's plain version) against the JAX
+    package's plain greedy_nms_in_order, with one full row of a shorter
+    valid prefix and one partial; the plain scan walks the valid prefix, so
+    the prefix is kept short enough to stay quick."""
+    n = 14_401
+    rng = np.random.default_rng(14_401)
+    boxes = _boxes(rng, 2, n)
+    nv = np.asarray([1_500, 777], np.int32)
+    got = tnms.nms_op(torch.from_numpy(boxes), torch.from_numpy(nv), 0.7).numpy()
+    valid = np.arange(n)[None, :] < nv[:, None]
+    want = np.stack([np.asarray(jnms.greedy_nms_in_order(jnp.asarray(boxes[r]),
+                                                         jnp.asarray(valid[r]), 0.7,
+                                                         valid_prefix=True))
+                     for r in range(2)])
+    np.testing.assert_array_equal(got, want)
+    assert got.shape == (2, n) and not got[:, 1_500:].any() and 0 < got.sum() < nv.sum()

@@ -438,12 +438,3 @@ def test_lr_backbone_zero_freezes_the_backbone():
     assert not torch.equal(after["head.rpn.cls_score.0.weight"],
                            before["head.rpn.cls_score.0.weight"])
     assert len(trainer.optimizer.param_groups) == 1
-
-
-@pytest.mark.parametrize("option", [{"remat_backbone": True}, {"grad_accum_steps": 2},
-                                    {"device_augment": True},
-                                    {"norm_layer_backbone": "batchnorm"}])
-def test_unported_training_options_raise(option):
-    cfg = tiny(NbmConfig, **option)
-    with pytest.raises(ValueError, match="not ported"):
-        tloop.Trainer(NbmModel(cfg), cfg)

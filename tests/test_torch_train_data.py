@@ -9,7 +9,8 @@
   2 steps, the files, a resume to 4; the checkpoint read back by the port's
   CLI and by the JAX package's load_params.
 - Kill-and-resume is bitwise equal to an uninterrupted run; resuming
-  without optimizer state raises; unported options are refused.
+  without optimizer state raises; the multi-device flags and a batch
+  that does not split into grad_accum_steps microbatches are refused.
 """
 
 import json
@@ -447,9 +448,9 @@ def test_params_npz_round_trips_through_jax_load_params(tmp_path):
 @pytest.mark.parametrize("extra, error", [
     (["--data_parallel", "2"], SystemExit),
     (["--distributed"], SystemExit),
-    (["--remat_backbone"], ValueError),
-    (["--grad_accum_steps", "2"], ValueError),
-    (["--device_augment", "true"], ValueError),
+    (["--model_parallel", "2"], SystemExit),
+    (["--num_processes", "2"], SystemExit),
+    (["--batch_size", "4", "--grad_accum_steps", "3"], SystemExit),
     (["--remat_backbone", "maybe"], SystemExit),
 ])
 def test_driver_refuses_unported_options(tmp_path, extra, error):
